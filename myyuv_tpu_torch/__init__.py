@@ -1,0 +1,24 @@
+"""myyuv_tpu_torch: the myyuv codec on PyTorch and CUDA.
+
+The port of ``myyuv_tpu`` (JAX on a TPU) to PyTorch and hand-written CUDA
+kernels for Hopper. It imports torch and numpy and never JAX or
+``myyuv_tpu``. Importing it registers nothing: the CLI fills the codec
+registry with ``engine.pipeline.register_engine_codecs(device)``.
+
+Layout (each module is the counterpart of ``myyuv_tpu``'s of that name):
+  formats/  byte-exact BMP / .myyuv / DCT-stream containers (numpy)
+  kernels/  constants, plain PyTorch transforms, the nvcc build of csrc/
+  entropy/  plain PyTorch Huffman coder; K1/K2 kernel wrappers
+  engine/   frame codec on the device; codec entry points and registry
+  runtime/  structured errors
+  csrc/     the CUDA kernels (dct_encode.cu = K1, decode_idct.cu = K2)
+  cli.py    ``python -m myyuv_tpu_torch`` (-info/-to_yuv/-compress/
+            -decompress, --device cuda|cpu)
+"""
+
+from .formats.bmp import BMPImage
+from .formats.yuv import Compressions, FourccFormats, YUVImage
+
+__all__ = ["BMPImage", "YUVImage", "FourccFormats", "Compressions"]
+
+__version__ = "0.1.0"

@@ -1,0 +1,169 @@
+"""Command-line interface mirroring the reference ``myyuv_cli``.
+
+Port of ``myyuv_tpu/cli.py`` (the codec commands):
+
+  python -m myyuv_tpu_torch <image> -info
+  python -m myyuv_tpu_torch <image.bmp> -to_yuv IYUV [-o out.myyuv]
+  python -m myyuv_tpu_torch <image.myyuv> -compress DCT q [q2 q3] [-o out]
+  python -m myyuv_tpu_torch <image.myyuv> -decompress [-o out.myyuv]
+
+``--device cuda`` (the default) runs the CUDA kernels, ``--device cpu``
+their plain PyTorch versions; both write the same bytes. Input type is
+sniffed from the two magic bytes like the reference (main.cpp:215-234), and
+each operation prints "<op> : N ms" like its MyTimer (main.cpp:11-41).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from pathlib import Path
+from typing import List, Optional
+
+from .engine import pipeline
+from .formats.bmp import BMPImage
+from .formats.yuv import Compressions, FourccFormats, YUVImage
+from .runtime.errors import MyYUVError
+
+_FORMATS = {"IYUV": FourccFormats.IYUV}
+_COMPRESSIONS = {"DCT": Compressions.DCT}
+
+
+class _Timer:
+    """Wall-clock op timing, printed like the reference MyTimer."""
+
+    def __init__(self, label: str):
+        self.label = label
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            ms = (time.perf_counter() - self.t0) * 1e3
+            print(f"{self.label} : {ms:.3f} ms")
+
+
+def _sniff(path: Path) -> str:
+    try:
+        with open(path, "rb") as f:
+            magic = f.read(2)
+    except OSError as e:
+        raise MyYUVError(f"cannot read {path}: {e}") from e
+    if magic == b"BM":
+        return "bmp"
+    if magic == b"YU":
+        return "yuv"
+    raise MyYUVError(f"Unknown image magic {magic!r} in {path}")
+
+
+def _fill_qualities(vals: List[int]) -> bytes:
+    """1-3 quality values; the last given fills the rest
+    (myyuv_cli/main.cpp:56-78)."""
+    if not 1 <= len(vals) <= 3:
+        raise MyYUVError("compress takes 1 to 3 quality parameters")
+    for v in vals:
+        if not 1 <= v <= 100:
+            raise MyYUVError("Level of quality must be between 1 and 100")
+    return bytes(list(vals) + [vals[-1]] * (3 - len(vals)))
+
+
+def _print_info(path: Path, kind: str) -> None:
+    if kind == "bmp":
+        bmp = BMPImage.load(path)
+        h = bmp.header
+        print("BMP image")
+        print(f"  size: {h.file_size}")
+        print(f"  width: {bmp.true_width}")
+        print(f"  height: {bmp.true_height}  (stored {h.height},"
+              f" {'bottom-up' if h.height > 0 else 'top-down'})")
+        print(f"  bit_count: {h.bit_count}")
+        print(f"  data_pos: {h.data_pos}")
+        return
+    img = YUVImage.load(path)
+    h = img.header
+    print(".myyuv image")
+    print(f"  format: {img.descriptor.name}")
+    print(f"  width: {h.width}")
+    print(f"  height: {h.height}")
+    print(f"  compression: {'DCT' if img.is_compressed() else 'NONE'}")
+    print(f"  data_size: {h.data_size}")
+    if h.compression_params_size:
+        print(f"  compression_params: {list(img.compression_params)}")
+
+
+def _default_out(path: Path, suffix: str, tag: str) -> Path:
+    return path.with_name(path.stem + tag + suffix)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m myyuv_tpu_torch",
+        description="myyuv codec CLI on PyTorch/CUDA (reference: myyuv_cli)")
+    p.add_argument("image", type=Path)
+    g = p.add_mutually_exclusive_group(required=True)
+    g.add_argument("-info", action="store_true")
+    g.add_argument("-to_yuv", metavar="FORMAT")
+    g.add_argument("-compress", nargs="+", metavar=("TYPE", "QUALITY"))
+    g.add_argument("-decompress", action="store_true")
+    p.add_argument("-o", "--output", type=Path, default=None)
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="'cuda' runs the CUDA kernels (default), 'cpu' "
+                        "their plain PyTorch versions")
+    args = p.parse_args(argv)
+
+    try:
+        pipeline.register_engine_codecs(args.device)
+        kind = _sniff(args.image)
+        if args.info:
+            _print_info(args.image, kind)
+            return 0
+
+        if args.to_yuv is not None:
+            if kind != "bmp":
+                raise MyYUVError("-to_yuv needs a BMP input")
+            fmt = _FORMATS.get(args.to_yuv.upper())
+            if fmt is None:
+                raise MyYUVError(f"Unknown YUV format {args.to_yuv}")
+            bmp = BMPImage.load(args.image)
+            with _Timer("to yuv"):
+                img = YUVImage.from_bmp(bmp, fmt)
+            out = args.output or _default_out(args.image, ".myyuv", "")
+            img.dump(out)
+            print(f"wrote {out}")
+            return 0
+
+        if kind != "yuv":
+            raise MyYUVError("this command needs a .myyuv input")
+        img = YUVImage.load(args.image)
+
+        if args.compress is not None:
+            ctype = _COMPRESSIONS.get(args.compress[0].upper())
+            if ctype is None:
+                raise MyYUVError(f"Unknown compression {args.compress[0]}")
+            params = _fill_qualities([int(v) for v in args.compress[1:]])
+            with _Timer("compression"):
+                comp = img.compress(ctype, params)
+            out = args.output or _default_out(
+                args.image, ".myyuv", f"-DCT-{params[0]}")
+            comp.dump(out)
+            ratio = img.header.data_size / comp.header.data_size
+            print(f"wrote {out}  ({comp.header.data_size} bytes,"
+                  f" {ratio:.2f}x)")
+            return 0
+
+        with _Timer("decompression"):
+            dec = img.decompress()
+        out = args.output or _default_out(args.image, ".myyuv", "-decomp")
+        dec.dump(out)
+        print(f"wrote {out}")
+        return 0
+    except (MyYUVError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,1 @@
+"""engine layer of the PyTorch/CUDA port (see the package docstring)."""

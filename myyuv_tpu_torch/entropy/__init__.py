@@ -1,0 +1,1 @@
+"""entropy layer of the PyTorch/CUDA port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""formats layer of the PyTorch/CUDA port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""runtime layer of the PyTorch/CUDA port (see the package docstring)."""
