@@ -5,31 +5,52 @@ Run from the repository root on a machine with a CUDA card::
 
     python3 chip_smoke.py
 
-It builds the two CUDA kernels from ``myyuv_tpu_torch/csrc`` (nvcc, first
-use), then, each phase printing one line and any failure ending the run
-with a non-zero exit code:
+It builds the six CUDA kernels from ``myyuv_tpu_torch/csrc`` (nvcc, one
+process per source, all at once), then, each phase printing one line and any
+failure ending the run with a non-zero exit code:
 
 1. environment: Python, torch, CUDA and nvcc versions, the card;
-2. build of both kernels, timed;
-3. K1 (csrc/dct_encode.cu) against its plain PyTorch version on the card at
-   4032x3008, q50 and q90, on five content kinds (noise, gradient, flat,
-   impulse, banded) with the contraction-probe blocks in every frame:
-   chunk bytes, sizes and error flags identical;
-4. K2 (csrc/decode_idct.cu) against its plain version on the same streams:
-   pixels and error codes identical, and corrupt chunks flagged alike;
+2. build of the six kernels, timed, with ptxas's registers, stack frame and
+   spills per kernel;
+3. on ten 4032x3008 frames (five content kinds: noise, gradient, flat,
+   impulse, banded; q50 and q90; the contraction-probe blocks in every
+   frame): K1 (csrc/dct_encode.cu), K3 (dct_quantize.cu) and K5
+   (huffman_encode.cu) against their plain PyTorch versions, and K5(K3(x))
+   against K1(x): coefficients, chunk bytes, sizes and flags identical;
+   K5 on int16 coefficients no DCT produces against its plain version;
+4. on those frames' streams: K2 (decode_idct.cu), K6 (huffman_decode.cu)
+   and K4 (dequantize_idct.cu) against their plain versions, K4(K6(s))
+   against K2(s), and, on a stream with corrupt chunks, K6's and K2's error
+   codes against each other and the plain version's;
 5. the main path through the CLI (``-to_yuv IYUV``, ``-compress DCT 50``,
-   ``-decompress``) on a synthetic 4032x3008 XRGB8888 BMP, with the launch
-   counters of K1 and K2 reset just before and read just after; the file's
-   payload must equal the plain versions' stream for the same planes and
-   the decoded planes their plain decode; then the same three commands at
-   1920x1088 with ``--device cuda`` and ``--device cpu`` must write
-   identical files;
-6. the launch counters of the main path's run are > 0;
-7. times with CUDA events (median of 7): K1 and K2 against their plain
-   versions at 4032x3008 q50, and end-to-end compress and decompress.
+   ``-decompress``) on a synthetic 4032x3008 XRGB8888 BMP, the launch counts
+   set to 0 just before and read just after; the file's payload must equal
+   the plain versions' stream and the decoded planes their plain decode;
+   then the same three commands at 1920x1088 with ``--device cuda`` and
+   ``--device cpu`` must write identical files;
+6. the staged route (``compress_frame_to_streams`` and
+   ``decompress_streams_to_frame`` with ``fused=False``, K3 -> K5 and
+   K6 -> K4) on the CLI frame at q50, counts set to 0 before and read
+   after: streams and planes identical to the fused route's;
+7. the batched API on 8 x 1920x1088 (``compress_batch_to_streams``,
+   ``compress_batch`` + ``decompress_batch``, ``roundtrip_batch``): each
+   frame's streams equal ``compress_frame_to_streams`` of that frame and the
+   planes the round trip's; then ``batch.roundtrip_step`` on the same batch,
+   planes equal to the plain versions' and the symbol histogram to numpy's
+   ``bincount`` of the plain coefficients;
+8. every kernel was launched by the path that drives it;
+9. times with CUDA events (median of 7): the six kernels against their
+   plain versions on the CLI frame at q50; staged against fused compress and
+   decompress and end-to-end ``compress_dct``/``decompress_dct`` on the
+   host clock; the 8 x 1080p ``roundtrip_batch`` and ``roundtrip_step``.
 
-It prints a JSON line with one entry per kernel, the card's name and power
-limit as ``nvidia-smi`` gives them, and, last,
+It prints a JSON line with one entry per kernel (its launches on the path
+that drives it, max abs error against its plain version, times, and the
+bound: the larger of the bytes it must move over 3.35 TB/s and its float32
+operations over 67 TFLOP/s, NVIDIA's H100 SXM figures; an encoder's output
+counts the measured stream's chunk bytes, not the 256-byte lanes the port
+writes them into), the card's name and
+power limit as ``nvidia-smi`` gives them, and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 ``myyuv_tpu_torch`` package beside it, it exits non-zero and prints no
 result.
@@ -38,6 +59,7 @@ result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -50,8 +72,22 @@ import torch
 
 H4K, W4K = 3008, 4032
 H1K, W1K = 1088, 1920
+BATCH = 8
 QUALITIES = (50, 90)
 REPS = 7
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
+F32_FLOP_PER_S = 67e12          # H100 SXM float32, outside the tensor cores
+DCT_FLOP = 2 * 64 * 15 + 64     # per block: two 8-term chains + (de)quantize
+KERNELS = ("dct_encode", "decode_idct", "dct_quantize", "dequantize_idct",
+           "huffman_encode", "huffman_decode")
+REPLACES = {
+    "dct_encode": "myyuv_tpu/entropy/pallas_encode8.py:609",
+    "decode_idct": "myyuv_tpu/entropy/pallas_decode8.py:189",
+    "dct_quantize": "myyuv_tpu/kernels/pallas_dct8.py:256",
+    "dequantize_idct": "myyuv_tpu/kernels/pallas_dct8.py:297",
+    "huffman_encode": "myyuv_tpu/entropy/pallas_encode8.py:603",
+    "huffman_decode": "myyuv_tpu/entropy/pallas_decode8.py:183+319",
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -106,15 +142,31 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int32) - b.to(torch.int32)).abs().max().item())
 
 
+def same(got, want, errs: dict, name: str, what: str) -> None:
+    """Hold each tensor of ``got`` to ``want`` exactly; keep the largest
+    absolute difference under ``errs[name]``."""
+    for g, w_ in zip(got, want):
+        errs[name] = max(errs[name], max_abs(g, w_))
+        check(torch.equal(g, w_), what)
+
+
+def bound_ms(nbytes: int, flops: int = 0):
+    """(least time in ms, "bytes" or "operations") on an H100 SXM."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from myyuv_tpu_torch import cli
-    from myyuv_tpu_torch.engine import device_stream, pipeline
+    from myyuv_tpu_torch.engine import batch, device_stream, pipeline
     from myyuv_tpu_torch.entropy import decode, encode
+    from myyuv_tpu_torch.entropy import device as edev
     from myyuv_tpu_torch.formats import bmp, dct_stream, yuv
-    from myyuv_tpu_torch.kernels import build, probe
+    from myyuv_tpu_torch.kernels import build, probe, transform
     from myyuv_tpu_torch.kernels import device as kdev
 
     dev = torch.device("cuda")
@@ -127,16 +179,30 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     print(card, flush=True)
 
-    t0 = time.perf_counter()
-    for name in ("dct_encode", "decode_idct"):
-        build.load(name)
-    print(f"[2 build] dct_encode.cu + decode_idct.cu for sm_90a in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    def reset_launches():
+        for k in build.launches:
+            build.launches[k] = 0
 
+    t0 = time.perf_counter()
+    build.build_all(KERNELS)
+    for name in KERNELS:
+        build.load(name)
+    print(f"[2 build] {len(KERNELS)} kernels for sm_90a in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name in KERNELS:
+        log = build.ptxas.get(name, "")
+        regs = re.search(r"Used (\d+) registers", log)
+        stack = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", log)
+        print(f"[2 ptxas] {name}: "
+              + (f"{regs.group(1)} registers, {stack.group(1)} B stack, "
+                 f"{stack.group(2)}/{stack.group(3)} B spill st/ld"
+                 if regs and stack else "no report (library cached)"))
+
+    errs = dict.fromkeys(KERNELS, 0)
     rng = np.random.default_rng(2026)
     probe_blocks = probe.contraction_probe_blocks()
     check(probe_blocks.shape[0] > 0, "no contraction-probe content found")
-    err1 = err2 = 0
     streams = []
     for kind in probe.KINDS:
         y = probe.with_probe_blocks(
@@ -146,57 +212,92 @@ def main() -> int:
         planes = [torch.from_numpy(p).to(dev) for p in (y, u, v)]
         for q in QUALITIES:
             dct, qt = pipeline.codec_params([q] * 3, dev)
+            tag = f"{kind} q{q}"
             got = encode.dct_encode_blocks(*planes, qt, dct)
             want = encode.dct_encode_blocks_plain(*planes, qt, dct)
             check(all(g.is_cuda for g in got), "K1 output not on the card")
-            for g, w_, what in zip(got, want, ("lanes", "sizes", "err")):
-                err1 = max(err1, max_abs(g, w_))
-                check(torch.equal(g, w_), f"K1 {what} differ: {kind} q{q}")
-            check(not got[2].any(), f"K1 flagged a chunk: {kind} q{q}")
-            streams.append((kind, q, planes, qt, dct, want[0], want[1]))
-    print(f"[3 K1 vs plain] {len(streams)} frames {W4K}x{H4K} "
+            same(got, want, errs, "dct_encode", f"K1 differs: {tag}")
+            check(not got[2].any(), f"K1 flagged a chunk: {tag}")
+            coeffs = transform.dct_quantize_blocks(*planes, qt, dct)
+            same([coeffs], [transform.dct_quantize_blocks_plain(
+                *planes, qt, dct)], errs, "dct_quantize", f"K3 differs: {tag}")
+            lanes5 = encode.encode_blocks(coeffs)
+            same(lanes5, edev.encode_lanes(coeffs), errs, "huffman_encode",
+                 f"K5 differs: {tag}")
+            check(all(torch.equal(a, b) for a, b in zip(lanes5, got)),
+                  f"K5(K3(x)) differs from K1(x): {tag}")
+            streams.append((kind, q, planes, qt, dct, want[0], want[1],
+                            coeffs))
+            if kind == "noise" and q == 50:
+                noise = (planes, qt, dct, coeffs)
+    extremes = torch.from_numpy(rng.integers(-32768, 32768, (4096, 64))
+                                .astype(np.int16)).to(dev)
+    extremes[0], extremes[1], extremes[2] = 32767, -32768, -1024
+    same(encode.encode_blocks(extremes), edev.encode_lanes(extremes), errs,
+         "huffman_encode", "K5 differs on int16 extremes")
+    print(f"[3 K1/K3/K5 vs plain] {len(streams)} frames {W4K}x{H4K} "
           f"(kinds {','.join(probe.KINDS)}; "
           f"q{'/'.join(map(str, QUALITIES))}; "
-          f"{probe_blocks.shape[0]} probe blocks): bytes, sizes, err "
-          f"identical, max_abs_err {err1}", flush=True)
+          f"{probe_blocks.shape[0]} probe blocks): coefficients, bytes, "
+          f"sizes, err identical; K5(K3(x)) == K1(x); K5 == plain on 4096 "
+          f"int16-extreme blocks; max_abs_err K1 {errs['dct_encode']} "
+          f"K3 {errs['dct_quantize']} K5 {errs['huffman_encode']}",
+          flush=True)
 
-    for kind, q, planes, qt, dct, lanes, sizes in streams:
+    for kind, q, planes, qt, dct, lanes, sizes, coeffs in streams:
+        tag = f"{kind} q{q}"
         stream = device_stream.compact_chunks(lanes, sizes)
         offsets = torch.cumsum(sizes, 0, dtype=torch.int64) - sizes
         got = decode.decode_idct_blocks(stream, sizes, offsets, qt, dct,
                                         H4K, W4K)
-        want = decode.decode_idct_blocks_plain(stream, sizes, offsets, qt,
-                                               dct, H4K, W4K)
-        for g, w_ in zip(got, want):
-            err2 = max(err2, max_abs(g, w_))
-            check(torch.equal(g, w_), f"K2 differs from plain: {kind} q{q}")
-        check(not got[3].any(), f"K2 rejected a valid stream: {kind} q{q}")
+        same(got, decode.decode_idct_blocks_plain(
+            stream, sizes, offsets, qt, dct, H4K, W4K), errs, "decode_idct",
+            f"K2 differs from plain: {tag}")
+        check(not got[3].any(), f"K2 rejected a valid stream: {tag}")
+        k6 = decode.decode_blocks(stream, sizes, offsets)
+        same(k6, decode.decode_blocks_plain(stream, sizes, offsets), errs,
+             "huffman_decode", f"K6 differs from plain: {tag}")
+        check(torch.equal(k6[0], coeffs), f"K6(K5(K3(x))) != K3(x): {tag}")
+        k4 = transform.dequantize_idct_blocks(k6[0], qt, dct, H4K, W4K)
+        same(k4, transform.dequantize_idct_blocks_plain(
+            k6[0], qt, dct, H4K, W4K), errs, "dequantize_idct",
+            f"K4 differs from plain: {tag}")
+        check(all(torch.equal(a, b) for a, b in zip(k4, got)),
+              f"K4(K6(s)) differs from K2(s): {tag}")
         if kind == "noise" and q == 50:
             bad_stream, bad_sizes = stream.clone(), sizes.clone()
+    del streams
     offsets = torch.cumsum(bad_sizes, 0, dtype=torch.int64) - bad_sizes
-    corrupt = {7: (2, 255), 1000: (0, 0xFF), 200000: (3, 0xE0)}
+    nb = bad_sizes.numel()
+    corrupt = {7: (2, 255), nb // 284: (0, 0xFF), nb * 7 // 10: (3, 0xE0)}
     for b, (pos, val) in corrupt.items():
         bad_stream[offsets[b] + pos] = val
-    bad_sizes[284000] = 2
+    short_b, outside_b = nb - 256, nb - 156
+    bad_sizes[short_b] = 2
     offsets = torch.cumsum(bad_sizes, 0, dtype=torch.int64) - bad_sizes
-    offsets[284100] = bad_stream.numel() + 100  # outside the content
+    offsets[outside_b] = bad_stream.numel() + 100  # outside the content
     dct, qt = pipeline.codec_params([50] * 3, dev)
     got = decode.decode_idct_blocks(bad_stream, bad_sizes, offsets, qt, dct,
                                     H4K, W4K)
-    want = decode.decode_idct_blocks_plain(bad_stream, bad_sizes, offsets,
-                                           qt, dct, H4K, W4K)
-    for g, w_ in zip(got, want):
-        err2 = max(err2, max_abs(g, w_))
-        check(torch.equal(g, w_), "K2 differs from plain on corrupt chunks")
+    same(got, decode.decode_idct_blocks_plain(
+        bad_stream, bad_sizes, offsets, qt, dct, H4K, W4K), errs,
+        "decode_idct", "K2 differs from plain on corrupt chunks")
+    k6 = decode.decode_blocks(bad_stream, bad_sizes, offsets)
+    same(k6, decode.decode_blocks_plain(bad_stream, bad_sizes, offsets),
+         errs, "huffman_decode", "K6 differs from plain on corrupt chunks")
+    check(torch.equal(k6[1], got[3]), "K6's codes differ from K2's")
+    check(not k6[0][k6[1] != 0].any(), "K6 left a bad block nonzero")
     flagged = torch.nonzero(got[3]).flatten().tolist()
-    check(7 in flagged and 284000 in flagged and int(got[3][284000]) == 1,
+    check(7 in flagged and short_b in flagged and int(got[3][short_b]) == 1,
           f"corrupt chunks not flagged: {flagged[:10]}")
-    print(f"[4 K2 vs plain] {len(streams)} streams: pixels and err "
-          f"identical, max_abs_err {err2}; corrupt chunks flagged alike at "
-          f"blocks {flagged[:8]} (codes "
-          f"{[int(got[3][b]) for b in flagged[:8]]})", flush=True)
-    del streams
+    print(f"[4 K2/K6/K4 vs plain] 10 streams: pixels, coefficients and err "
+          f"identical; K4(K6(s)) == K2(s); corrupt chunks flagged alike by "
+          f"K2, K6 and plain at blocks {flagged[:8]} (codes "
+          f"{[int(got[3][b]) for b in flagged[:8]]}); max_abs_err K2 "
+          f"{errs['decode_idct']} K6 {errs['huffman_decode']} K4 "
+          f"{errs['dequantize_idct']}", flush=True)
 
+    launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
 
@@ -217,15 +318,14 @@ def main() -> int:
             check(rc == 0, f"CLI failed: {' '.join(map(str, args))}")
 
         px = synthetic_bmp(H4K, W4K, tmp / "f.bmp")
-        encode.launches = decode.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         run_cli(tmp / "f.bmp", "-to_yuv", "IYUV", "-o", tmp / "f.myyuv")
         run_cli(tmp / "f.myyuv", "-compress", "DCT", "50", "-o",
                 tmp / "f-c.myyuv")
         run_cli(tmp / "f-c.myyuv", "-decompress", "-o", tmp / "f-d.myyuv")
         t_cli = time.perf_counter() - t0
-        launches = {"dct_encode": encode.launches,
-                    "decode_idct": decode.launches}
+        launches["main"] = dict(build.launches)
 
         img = yuv.YUVImage.load(tmp / "f.myyuv")
         want_planes = kdev.bgrx_to_iyuv(torch.from_numpy(px))
@@ -282,39 +382,175 @@ def main() -> int:
               f"write identical files (to_yuv, DCT 50, decompress)",
               flush=True)
 
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel of the main path never launched: {launches}")
-    print(f"[6 launches] main path: {launches}", flush=True)
+    frame_np = img.planes()
+    reset_launches()
+    staged = device_stream.compress_frame_to_streams(frame_np, qt, dct,
+                                                     fused=False)
+    staged_planes = device_stream.decompress_streams_to_frame(
+        staged, qt, dct, H4K, W4K, fused=False)
+    launches["staged"] = dict(build.launches)
+    for (gs, gc), (ws, wc) in zip(staged, plain):
+        check(np.array_equal(gs, ws) and np.array_equal(gc, wc),
+              "staged-route streams differ from the fused route's")
+    for g, w_ in zip(staged_planes, dec.planes()):
+        check(np.array_equal(g, w_),
+              "staged-route planes differ from the fused route's")
+    print(f"[6 staged route] compress_frame_to_streams / "
+          f"decompress_streams_to_frame fused=False on {W4K}x{H4K} q50: "
+          f"streams and planes == fused route; launches "
+          f"{launches['staged']}", flush=True)
 
-    # timings on the CLI frame's planes, q50
-    k1_ms = cuda_ms(lambda: encode.dct_encode_blocks(*planes, qt, dct))
-    k1_plain = cuda_ms(
-        lambda: encode.dct_encode_blocks_plain(*planes, qt, dct))
-    k2_ms = cuda_ms(lambda: decode.decode_idct_blocks(
-        stream, sizes, offsets, qt, dct, H4K, W4K))
-    k2_plain = cuda_ms(lambda: decode.decode_idct_blocks_plain(
-        stream, sizes, offsets, qt, dct, H4K, W4K))
+    kinds = [probe.KINDS[f % len(probe.KINDS)] for f in range(BATCH)]
+    frames = [[probe.content_kind(rng, k, s) for s in
+               ((H1K, W1K), (H1K // 2, W1K // 2), (H1K // 2, W1K // 2))]
+              for k in kinds]
+    stack = [np.stack([f[i] for f in frames]) for i in range(3)]
+    bt = [torch.from_numpy(p).to(dev) for p in stack]
+    reset_launches()
+    per_frame = device_stream.compress_batch_to_streams(stack, qt, dct)
+    bsizes, bcontent = device_stream.compress_batch(*bt, qt, dct)
+    bdec = device_stream.decompress_batch(bcontent, bsizes, qt, dct, BATCH,
+                                          H1K, W1K)
+    (rby, rbu, rbv), btotal, bok = device_stream.roundtrip_batch(*bt, qt,
+                                                                 dct)
+    check(bool(bok), "roundtrip_batch reported a bad block")
+    launches["batch"] = dict(build.launches)
+    reset_launches()
+    (sy, su, sv), metrics = batch.roundtrip_step(*bt, *qt, dct)
+    torch.cuda.synchronize()
+    launches["roundtrip_step"] = dict(build.launches)
+    for f in range(BATCH):
+        one = device_stream.compress_frame_to_streams(frames[f], qt, dct)
+        for (gs, gc), (ws, wc) in zip(per_frame[f], one):
+            check(np.array_equal(gs, ws) and np.array_equal(gc, wc),
+                  f"batched streams of frame {f} differ from its own")
+    for g, w_ in zip(bdec, (rby, rbu, rbv)):
+        check(torch.equal(g, w_), "decompress_batch differs from the "
+              "round trip")
+    check(int(btotal) == bcontent.numel(), "roundtrip_batch total differs")
+    tall = [p.view(-1, p.shape[-1]) for p in bt]
+    pcoeffs = transform.dct_quantize_blocks_plain(*tall, qt, dct)
+    pplanes = transform.dequantize_idct_blocks_plain(pcoeffs, qt, dct,
+                                                     BATCH * H1K, W1K)
+    for g, w_ in zip((sy, su, sv), pplanes):
+        check(torch.equal(g.reshape(w_.shape), w_),
+              "roundtrip_step planes differ from the plain versions'")
+    sym = pcoeffs.cpu().numpy().astype(np.int32).ravel() + 1024
+    counted = np.bincount(sym[(sym >= 0) & (sym < batch.NUM_SYMBOLS)],
+                          minlength=batch.NUM_SYMBOLS)
+    check(np.array_equal(metrics["symbol_hist"].cpu().numpy(), counted),
+          "roundtrip_step histogram differs from numpy's count")
+    for g, w_ in zip((sy, su, sv), (rby, rbu, rbv)):
+        check(torch.equal(g, w_), "roundtrip_step planes differ from "
+              "roundtrip_batch's")
+    psnr_b = 10 * np.log10(255.0 ** 2 * stack[0].size
+                           / max(float(metrics["sse_y"]), 1e-9))
+    print(f"[7 batch] {BATCH} x {W1K}x{H1K} (kinds {','.join(kinds)}) q50: "
+          f"per-frame streams == compress_frame_to_streams, "
+          f"decompress_batch == roundtrip_batch planes, {int(btotal)} bytes; "
+          f"roundtrip_step planes == plain, histogram == numpy's, PSNR-Y "
+          f"{psnr_b:.2f} dB, entropy "
+          f"{float(metrics['entropy_bits_per_symbol']):.4f} bits/symbol; "
+          f"launches batch {launches['batch']}, roundtrip_step "
+          f"{launches['roundtrip_step']}", flush=True)
+
+    path_of = {"dct_encode": "main", "decode_idct": "main",
+               "dct_quantize": "staged", "dequantize_idct": "staged",
+               "huffman_encode": "staged", "huffman_decode": "staged"}
+    for name, path in path_of.items():
+        check(launches[path][name] > 0,
+              f"{name} never launched on the {path} path: {launches[path]}")
+    for name in ("dct_encode", "decode_idct"):
+        check(launches["batch"][name] > 0, f"batch path skipped {name}")
+    for name in ("dct_quantize", "dequantize_idct"):
+        check(launches["roundtrip_step"][name] > 0,
+              f"roundtrip_step skipped {name}")
+    print(f"[8 launches] main path {launches['main']}; staged route "
+          f"{launches['staged']}", flush=True)
+
+    # kernel times on the CLI frame's planes, q50
+    n = sum(kdev.plane_block_counts(H4K, W4K))
+    npx = H4K * W4K * 3 // 2
+    coeffs = transform.dct_quantize_blocks(*planes, qt, dct)
+    tables = qt.numel() * 4 + dct.numel() * 4
+    runs = {
+        "dct_encode": (
+            lambda: encode.dct_encode_blocks(*planes, qt, dct),
+            lambda: encode.dct_encode_blocks_plain(*planes, qt, dct),
+            bound_ms(npx + tables + stream.numel() + n * 8, n * DCT_FLOP)),
+        "decode_idct": (
+            lambda: decode.decode_idct_blocks(stream, sizes, offsets, qt,
+                                              dct, H4K, W4K),
+            lambda: decode.decode_idct_blocks_plain(stream, sizes, offsets,
+                                                    qt, dct, H4K, W4K),
+            bound_ms(stream.numel() + n * 12 + tables + npx + n * 4,
+                     n * DCT_FLOP)),
+        "dct_quantize": (
+            lambda: transform.dct_quantize_blocks(*planes, qt, dct),
+            lambda: transform.dct_quantize_blocks_plain(*planes, qt, dct),
+            bound_ms(npx + tables + n * 128, n * DCT_FLOP)),
+        "dequantize_idct": (
+            lambda: transform.dequantize_idct_blocks(coeffs, qt, dct, H4K,
+                                                     W4K),
+            lambda: transform.dequantize_idct_blocks_plain(coeffs, qt, dct,
+                                                           H4K, W4K),
+            bound_ms(n * 128 + tables + npx, n * DCT_FLOP)),
+        "huffman_encode": (
+            lambda: encode.encode_blocks(coeffs),
+            lambda: edev.encode_lanes(coeffs),
+            bound_ms(n * 128 + stream.numel() + n * 8)),
+        "huffman_decode": (
+            lambda: decode.decode_blocks(stream, sizes, offsets),
+            lambda: decode.decode_blocks_plain(stream, sizes, offsets),
+            bound_ms(stream.numel() + n * 12 + n * (128 + 4))),
+    }
+    times = {name: (cuda_ms(k), cuda_ms(p), b)
+             for name, (k, p, b) in runs.items()}
+    print(f"[9 times] {card} | {W4K}x{H4K} q50, median of {REPS}, CUDA "
+          f"events: " + ", ".join(
+              f"{name} {t:.4f} ms (plain {p:.4f}, bound {b[0]:.4f} by "
+              f"{b[1]})" for name, (t, p, b) in times.items()), flush=True)
+    nplanes, nqt, ndct, ncoeffs = noise
+    k1_noise = cuda_ms(lambda: encode.dct_encode_blocks(*nplanes, nqt, ndct))
+    k5_noise = cuda_ms(lambda: encode.encode_blocks(ncoeffs))
+    print(f"[9 times] {card} | phase 3's noise frame {W4K}x{H4K} q50, "
+          f"median of {REPS}, CUDA events: dct_encode {k1_noise:.4f} ms, "
+          f"huffman_encode {k5_noise:.4f} ms", flush=True)
+    del noise, nplanes, ncoeffs
+
+    def fused_ms(fused):
+        c = host_ms(lambda: device_stream.compress_frame(*planes, qt, dct,
+                                                         fused=fused))
+        d = host_ms(lambda: device_stream.decompress_frame(
+            stream, sizes, qt, dct, H4K, W4K, fused=fused))
+        return c, d
+
+    fused_c, fused_d = fused_ms(True)
+    staged_c, staged_d = fused_ms(False)
     e2e_c = host_ms(lambda: pipeline.compress_dct(img, bytes([50] * 3),
                                                   device=dev))
     e2e_d = host_ms(lambda: pipeline.decompress_dct(comp, device=dev))
-    print(f"[7 times] {card} | {W4K}x{H4K} q50, median of {REPS}: "
-          f"K1 {k1_ms:.4f} ms (plain {k1_plain:.4f} ms), "
-          f"K2 {k2_ms:.4f} ms (plain {k2_plain:.4f} ms) [CUDA events]; "
-          f"compress_dct {e2e_c:.3f} ms, decompress_dct {e2e_d:.3f} ms "
-          f"[host clock, file in memory to file in memory]", flush=True)
+    rt_ms = host_ms(lambda: device_stream.roundtrip_batch(*bt, qt, dct))
+    step_ms = host_ms(lambda: batch.roundtrip_step(*bt, *qt, dct))
+    print(f"[9 times] {card} | host clock, median of {REPS}: {W4K}x{H4K} "
+          f"q50 compress_frame fused {fused_c:.3f} ms staged "
+          f"{staged_c:.3f} ms; decompress_frame fused {fused_d:.3f} ms "
+          f"staged {staged_d:.3f} ms; compress_dct {e2e_c:.3f} ms, "
+          f"decompress_dct {e2e_d:.3f} ms [file in memory to file in "
+          f"memory]; {BATCH} x {W1K}x{H1K} q50 roundtrip_batch "
+          f"{rt_ms:.3f} ms ({BATCH * 1e3 / rt_ms:.1f} frames/s); "
+          f"roundtrip_step {step_ms:.3f} ms", flush=True)
 
     print(json.dumps({"kernels": [
-        {"name": "dct_encode", "route": "cuda",
-         "source": "myyuv_tpu_torch/csrc/dct_encode.cu",
-         "replaces": "myyuv_tpu/entropy/pallas_encode8.py:609",
-         "launches": launches["dct_encode"], "max_abs_err": err1,
-         "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "decode_idct", "route": "cuda",
-         "source": "myyuv_tpu_torch/csrc/decode_idct.cu",
-         "replaces": "myyuv_tpu/entropy/pallas_decode8.py:189",
-         "launches": launches["decode_idct"], "max_abs_err": err2,
-         "ms": k2_ms, "plain_ms": k2_plain},
-    ]}))
+        {"name": name, "route": "cuda",
+         "source": f"myyuv_tpu_torch/csrc/{name}.cu",
+         "replaces": REPLACES[name],
+         "launches": launches[path_of[name]][name],
+         "max_abs_err": errs[name],
+         "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": times[name][2][0], "bound_by": times[name][2][1],
+         "library_ms": None}
+        for name in KERNELS]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,13 @@
-// Shared device helpers of the codec kernels (dct_encode.cu, decode_idct.cu).
+// Shared device helpers of the codec kernels (csrc/*.cu).
 //
 // Block-major frame geometry: block id b counts the Y plane's 8x8 blocks in
 // raster order, then U's, then V's (the on-disk plane order, DCT.cpp:112-173).
+// A batch of B frames passed as one plane of B*h rows gives the plane-major
+// batch order (all Y, then all U, then all V, frames contiguous in each).
 // A chunk lane is 256 bytes held as 64 little-endian u32 words, so stream bit
 // p is bit (p & 31) of word (p >> 5) and stream byte j is byte (j & 3) of word
-// (j >> 2).
+// (j >> 2). A coefficient row is 64 int16 in natural row-major 8x8 order
+// (128 bytes, 16-byte aligned in every [N, 64] tensor).
 #pragma once
 
 #include <cstdint>
@@ -65,6 +68,22 @@ __device__ inline void load_params(CodecParams& p, const float* dct,
   for (int i = threadIdx.x; i < 64; i += blockDim.x) p.c[i] = dct[i];
   for (int i = threadIdx.x; i < 3 * 64; i += blockDim.x) p.q[i] = qt[i];
   __syncthreads();
+}
+
+// One coefficient row to or from device memory as 8 aligned 16-byte
+// accesses; `coef` is a 16-byte aligned local array.
+__device__ __forceinline__ void load_coeffs(const int16_t* row,
+                                            int16_t* coef) {
+  const uint4* src = reinterpret_cast<const uint4*>(row);
+  uint4* dst = reinterpret_cast<uint4*>(coef);
+  for (int k = 0; k < 8; ++k) dst[k] = src[k];
+}
+
+__device__ __forceinline__ void store_coeffs(const int16_t* coef,
+                                             int16_t* row) {
+  const uint4* src = reinterpret_cast<const uint4*>(coef);
+  uint4* dst = reinterpret_cast<uint4*>(row);
+  for (int k = 0; k < 8; ++k) dst[k] = src[k];
 }
 
 }  // namespace myyuv

@@ -1,0 +1,127 @@
+"""Batched transform round trip with RD statistics.
+
+Port of ``myyuv_tpu/engine/batch.py`` (``plane_qtables``,
+``symbol_histogram``, ``encode_planes``, ``decode_planes``,
+``roundtrip_step``). Frames are batched on a leading axis; the forward and
+inverse transforms are K3 (``kernels/transform.dct_quantize_blocks``) and K4
+(``dequantize_idct_blocks``) over the batch seen as one frame of B*H rows,
+on the card for CUDA tensors and their plain versions for CPU tensors. The
+statistics (per-plane squared-error sums, the global 2048-bin symbol
+histogram, the entropy estimate) are PyTorch reductions.
+``make_sharded_roundtrip`` has no counterpart yet (multi-device port).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from ..kernels import constants, transform
+from ..kernels import device as kdev
+from .device_stream import as_one_frame
+from .pipeline import resolve_device
+
+# 11-bit symbol alphabet of the entropy stage (coefficients in [-1024, 1023])
+NUM_SYMBOLS = 2048
+
+Planes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def plane_qtables(qualities, device="cuda") -> Planes:
+    """The three [8, 8] float32 quality-scaled tables (Y, U, V) on
+    ``device``."""
+    dev = resolve_device(device)
+    return tuple(
+        torch.from_numpy(constants.quality_scaled_qtable(
+            constants.PLANE_Q50[i], int(qualities[i]))).to(dev)
+        for i in range(3))
+
+
+def symbol_histogram(coeffs: torch.Tensor) -> torch.Tensor:
+    """Global [NUM_SYMBOLS] int32 histogram of quantized coefficients (bin
+    c + 1024); values outside the 11-bit alphabet are not counted.
+
+    A sort and a count (``torch.unique``), not ``torch.bincount``: most
+    coefficients are 0, and bincount's atomic adds on the card serialise
+    on that one bin.
+    """
+    idx = coeffs.reshape(-1).to(torch.int32) + 1024
+    idx = torch.where((idx >= 0) & (idx < NUM_SYMBOLS), idx, NUM_SYMBOLS)
+    vals, counts = torch.unique(idx, return_counts=True)
+    hist = torch.zeros(NUM_SYMBOLS + 1, dtype=torch.int64, device=idx.device)
+    hist.index_put_((vals.long(),), counts)
+    return hist[:NUM_SYMBOLS].to(torch.int32)
+
+
+def _forward(y, u, v, qts, dct):
+    """K3 over the batch as one frame -> (coefficients [N, 64], per-plane
+    views [..., n, 8, 8])."""
+    lead = y.shape[:-2]
+    ys, us, vs = as_one_frame(y, u, v)
+    c = kdev.dct_matrix(y.device) if dct is None else dct
+    coeffs = transform.dct_quantize_blocks(ys, us, vs, torch.stack(qts), c)
+    n = kdev.plane_block_counts(*ys.shape)
+    return coeffs, tuple(p.view(*lead, -1, 8, 8) for p in coeffs.split(n))
+
+
+def _inverse(coeffs, qts, dct, lead, h, w) -> Planes:
+    """K4 of [N, 64] coefficients over the batch as one frame -> planes
+    [..., H, W] (+ chroma)."""
+    c = kdev.dct_matrix(coeffs.device) if dct is None else dct
+    y, u, v = transform.dequantize_idct_blocks(
+        coeffs, torch.stack(qts), c, math.prod(lead) * h, w)
+    return (y.view(*lead, h, w), u.view(*lead, h // 2, w // 2),
+            v.view(*lead, h // 2, w // 2))
+
+
+def encode_planes(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                  qt_y: torch.Tensor, qt_u: torch.Tensor, qt_v: torch.Tensor,
+                  dct: torch.Tensor | None = None) -> Planes:
+    """[B, H, W] (or [H, W]) + chroma uint8 -> per-plane quantized
+    coefficients [B, n, 8, 8] int16 (raster blocks per frame), via K3."""
+    return _forward(y, u, v, (qt_y, qt_u, qt_v), dct)[1]
+
+
+def decode_planes(cy: torch.Tensor, cu: torch.Tensor, cv: torch.Tensor,
+                  qt_y: torch.Tensor, qt_u: torch.Tensor, qt_v: torch.Tensor,
+                  h: int, w: int, dct: torch.Tensor | None = None) -> Planes:
+    """Per-plane coefficients [B, n, 8, 8] (or [n, 8, 8]) -> [B, H, W]
+    (+ chroma) uint8 planes, via K4."""
+    coeffs = torch.cat([p.reshape(-1, 64) for p in (cy, cu, cv)])
+    return _inverse(coeffs, (qt_y, qt_u, qt_v), dct, cy.shape[:-3], h, w)
+
+
+def roundtrip_step(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                   qt_y: torch.Tensor, qt_u: torch.Tensor, qt_v: torch.Tensor,
+                   dct: torch.Tensor | None = None
+                   ) -> Tuple[Planes, Dict[str, torch.Tensor]]:
+    """Transform round trip (DCT -> quantize -> reconstruct) + metrics.
+
+    Returns the reconstructed planes and the JAX package's metrics dict:
+    per-plane float32 squared-error sums ``sse_y/u/v`` (for PSNR), the
+    global ``symbol_hist`` and ``entropy_bits_per_symbol``, all on the
+    planes' device.
+    """
+    h, w = y.shape[-2:]
+    qts = (qt_y, qt_u, qt_v)
+    coeffs, _ = _forward(y, u, v, qts, dct)
+    ry, ru, rv = _inverse(coeffs, qts, dct, y.shape[:-2], h, w)
+
+    def sq_err(a, b):
+        d = a.to(torch.float32) - b.to(torch.float32)
+        return torch.sum(d * d)
+
+    hist = symbol_histogram(coeffs)  # the sum of the three planes'
+    p = hist.to(torch.float32) / torch.clamp(hist.sum(), min=1)
+    entropy_bits = -torch.sum(
+        torch.where(p > 0, p * torch.log2(p), torch.zeros_like(p)))
+    metrics = {
+        "sse_y": sq_err(y, ry),
+        "sse_u": sq_err(u, ru),
+        "sse_v": sq_err(v, rv),
+        "symbol_hist": hist,
+        "entropy_bits_per_symbol": entropy_bits,
+    }
+    return (ry, ru, rv), metrics

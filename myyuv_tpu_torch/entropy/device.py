@@ -38,6 +38,8 @@ ZIGZAG = np.array([
 ], np.int64)
 I32 = torch.int32
 _BIG = 1 << 20
+# sorts after every int16 symbol (and its negation before every one)
+_PAST_INT16 = 1 << 16
 # at most 85 tree groups fit a 255-byte tree section (each takes >= 3 bytes)
 _MAX_GROUPS = 85
 
@@ -57,9 +59,10 @@ def encode_lanes(coeffs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
     """[N, 64] int16 row-major coefficients -> (lanes u8 [N, 256], sizes
     i32 [N], err i32 [N]).
 
-    Lane b holds chunk b's bytes, zero beyond ``sizes[b]``. ``err`` is 1
-    only for a chunk longer than the format's 255 bytes (its lane is then
-    zero); for 11-bit coefficients that cannot happen.
+    Lane b holds chunk b's bytes, zero beyond ``sizes[b]``. Distinct
+    symbols are the full int16 values, each stored as its low 11 bits
+    (native's ``& 0x7FF``). ``err`` is 1 only for a chunk longer than the
+    format's 255 bytes (its lane is then zero); no int16 input makes one.
     """
     dev = coeffs.device
     n = coeffs.shape[0]
@@ -72,8 +75,10 @@ def encode_lanes(coeffs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
 
     # distinct symbols ascending + their frequencies (valid entries sort
     # first; group id gid per sorted entry)
-    sv, sidx = torch.sort(torch.where(valid, m, 4096), dim=1, stable=True)
-    prev = torch.cat([torch.full((n, 1), -4096, dtype=I32, device=dev),
+    sv, sidx = torch.sort(torch.where(valid, m, _PAST_INT16), dim=1,
+                          stable=True)
+    prev = torch.cat([torch.full((n, 1), -_PAST_INT16, dtype=I32,
+                                 device=dev),
                       sv[:, :-1]], dim=1)
     is_new = (sv != prev) & valid
     gid = torch.cumsum(is_new, dim=1, dtype=I32) - 1
@@ -205,7 +210,7 @@ def decode_lanes(lanes: torch.Tensor, sizes: torch.Tensor
     sections longer than the chunk, 3 more than 64 symbols of one length,
     4 tree section size mismatch, 5 payload ends inside a code, 6 bad
     code, 7 no code of <= 8 bits, 8 trailing bits. A bad block's
-    coefficients are unspecified.
+    coefficients are 0.
     """
     dev = lanes.device
     n = lanes.shape[0]
@@ -285,4 +290,5 @@ def decode_lanes(lanes: torch.Tensor, sizes: torch.Tensor
         col = int(ZIGZAG[j])
         coeffs[:, col] = torch.where(found, sym, coeffs[:, col])
     err = torch.where((err == 0) & (bitpos != enc_bits), 8, err)
+    coeffs = torch.where(err[:, None] != 0, 0, coeffs)
     return coeffs.to(torch.int16), err

@@ -1,9 +1,16 @@
-"""K1 wrapper: fused DCT + quantize + Huffman encode of a whole frame.
+"""K1 and K5 wrappers: the fused frame encode and the coefficient encode.
 
 ``dct_encode_blocks`` launches ``csrc/dct_encode.cu`` (the port of
-``myyuv_tpu/entropy/pallas_encode8.py::_dct_encode_kernel8``) for tensors
-on a CUDA device, and runs the plain PyTorch version for tensors on the
-CPU. There is no fallback: a CUDA tensor launches the kernel or raises.
+``myyuv_tpu/entropy/pallas_encode8.py::_dct_encode_kernel8``);
+``encode_blocks`` launches ``csrc/huffman_encode.cu`` (the port of
+``pallas_encode8.py::_encode_kernel8`` and of its entry point
+``entropy/pallas_encode.py::_encode_kernel``). Both run on tensors on a
+CUDA device and run their plain PyTorch versions on tensors on the CPU.
+There is no fallback: a CUDA tensor launches the kernel or raises.
+
+Output contract of both: (lanes u8 [N, 256], sizes i32 [N], err i32 [N]);
+lane b holds chunk b's on-disk bytes, zero past ``sizes[b]``; ``err[b]`` is
+1 only for a chunk the u8 size field cannot hold (its lane is then zero).
 """
 
 from __future__ import annotations
@@ -13,71 +20,58 @@ from typing import Tuple
 import torch
 
 from ..kernels import build
-from ..kernels import device as kdev
+from ..kernels import transform
 from . import device as edev
 
-# kernel launches made through dct_encode_blocks (reset it to count a run)
-launches = 0
+Lanes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def _check(y, u, v, qtables, dct):
-    if y.dim() != 2:
-        raise ValueError("y must be [H, W]")
-    h, w = y.shape
-    if h % 16 or w % 16:
-        raise ValueError("frame height and width must be multiples of 16")
-    for name, t, shape, dtype in (
-            ("y", y, (h, w), torch.uint8),
-            ("u", u, (h // 2, w // 2), torch.uint8),
-            ("v", v, (h // 2, w // 2), torch.uint8),
-            ("qtables", qtables, (3, 8, 8), torch.float32),
-            ("dct", dct, (8, 8), torch.float32)):
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name}: want {dtype} {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != y.device:
-            raise ValueError(f"{name} is on {t.device}, y on {y.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
-    return h, w
+def _outputs(n: int, dev: torch.device) -> Lanes:
+    return (torch.empty((n, edev.LANE), dtype=torch.uint8, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev))
 
 
-def dct_encode_blocks_plain(y, u, v, qtables, dct):
+def dct_encode_blocks_plain(y, u, v, qtables, dct) -> Lanes:
     """The plain PyTorch version of K1 (same contract)."""
-    coeffs = torch.cat([
-        kdev.dct_quantize(kdev.plane_to_blocks(p), qtables[i], dct)
-        .reshape(-1, 64) for i, p in enumerate((y, u, v))])
-    return edev.encode_lanes(coeffs)
+    return edev.encode_lanes(
+        transform.dct_quantize_blocks_plain(y, u, v, qtables, dct))
 
 
 def dct_encode_blocks(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                      qtables: torch.Tensor, dct: torch.Tensor
-                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                      qtables: torch.Tensor, dct: torch.Tensor) -> Lanes:
     """Frame -> per-block Huffman chunks.
 
     ``y`` [H, W], ``u``/``v`` [H/2, W/2] uint8 (H, W multiples of 16);
     ``qtables`` [3, 8, 8] float32 (Y, U, V); ``dct`` [8, 8] float32.
-    Returns (lanes u8 [N, 256], sizes i32 [N], err i32 [N]) over the
-    N = Y, then U, then V raster blocks: lane b holds chunk b's on-disk
-    bytes, zero past ``sizes[b]``; ``err[b]`` is 1 only for a chunk the
-    u8 size field cannot hold.
+    Returns (lanes, sizes, err) over the N = Y, then U, then V raster
+    blocks: K3 followed by K5 in one kernel.
     """
-    h, w = _check(y, u, v, qtables, dct)
-    if y.device.type == "cpu":
+    h, w = transform.check_frame(y, u, v, qtables, dct)
+    if build.on_cpu(y.device, "dct_encode"):
         return dct_encode_blocks_plain(y, u, v, qtables, dct)
-    if y.device.type != "cuda":
-        raise ValueError(f"no dct_encode kernel for device {y.device}")
-    fn = build.load("dct_encode")
-    n = sum(kdev.plane_block_counts(h, w))
-    lanes = torch.empty((n, edev.LANE), dtype=torch.uint8, device=y.device)
-    sizes = torch.empty(n, dtype=torch.int32, device=y.device)
-    err = torch.empty(n, dtype=torch.int32, device=y.device)
-    stream = torch.cuda.current_stream(y.device).cuda_stream
-    rc = fn(y.data_ptr(), u.data_ptr(), v.data_ptr(), h, w, qtables.data_ptr(),
-            dct.data_ptr(), lanes.data_ptr(), sizes.data_ptr(), err.data_ptr(),
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"dct_encode kernel launch failed: CUDA error {rc}")
-    global launches
-    launches += 1
+    lanes, sizes, err = _outputs(transform.frame_blocks(h, w), y.device)
+    build.launch("dct_encode", y.device, y.data_ptr(), u.data_ptr(),
+                 v.data_ptr(), h, w, qtables.data_ptr(), dct.data_ptr(),
+                 lanes.data_ptr(), sizes.data_ptr(), err.data_ptr())
+    return lanes, sizes, err
+
+
+def encode_blocks(coeffs: torch.Tensor) -> Lanes:
+    """Coefficient rows -> per-block Huffman chunks.
+
+    ``coeffs`` int16 [N, 64] in natural row-major 8x8 order (zigzag is
+    applied here). Distinct symbols are the full int16 values, each stored
+    as its low 11 bits, as the native coder does. Returns (lanes, sizes,
+    err).
+    """
+    n = coeffs.shape[0] if coeffs.dim() == 2 else -1
+    build.check_tensors(coeffs.device,
+                        ("coeffs", coeffs, (n, 64), torch.int16))
+    build.check_aligned("coeffs", coeffs)
+    if build.on_cpu(coeffs.device, "huffman_encode"):
+        return edev.encode_lanes(coeffs)
+    lanes, sizes, err = _outputs(n, coeffs.device)
+    build.launch("huffman_encode", coeffs.device, coeffs.data_ptr(), n,
+                 lanes.data_ptr(), sizes.data_ptr(), err.data_ptr())
     return lanes, sizes, err

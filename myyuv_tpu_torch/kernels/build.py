@@ -1,15 +1,23 @@
-"""Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
+"""Build, load and launch the port's CUDA kernels (nvcc -> shared library ->
+ctypes).
 
 Each kernel is one ``csrc/<name>.cu`` with a plain ``extern "C"``
 interface. The first call of ``load(name)`` in a process compiles it for
 Hopper (``sm_90a``) into ``build/myyuv_tpu_torch/`` at the repository root,
 under a file name that carries a hash of the sources and flags, so an
-edited source never loads a stale library. Nothing is built at import.
+edited source or header never loads a stale library; ``build_all`` compiles
+several at once, one nvcc process each. Nothing is built at import.
 
 Flags: ``-fmad=false`` keeps nvcc from contracting a multiply and an add
 into one FMA (the kernels also spell every product and sum of the DCT
 chains with ``__fmul_rn`` / ``__fadd_rn``), and there is no
 ``-use_fast_math``: ``__fdiv_rn`` and ``roundf`` stay IEEE-exact.
+``-Xptxas -v`` reports each kernel's registers, stack frame and spills
+(kept in ``ptxas``).
+
+The wrappers (``kernels/transform.py``, ``entropy/encode.py``,
+``entropy/decode.py``) call ``launch``, which counts every launch in
+``launches``: reset the counts to see which kernels a run went through.
 """
 
 from __future__ import annotations
@@ -20,12 +28,15 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "myyuv_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC"]
 
 # ctypes signatures: every pointer and the stream are c_void_p
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
@@ -35,7 +46,19 @@ SIGNATURES = {
     "decode_idct": ("myyuv_decode_idct",
                     [_P, _I64, _P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P,
                      _P]),
+    "dct_quantize": ("myyuv_dct_quantize",
+                     [_P, _P, _P, _I64, _I64, _P, _P, _P, _P]),
+    "dequantize_idct": ("myyuv_dequantize_idct",
+                        [_P, _I64, _I64, _P, _P, _P, _P, _P, _P]),
+    "huffman_encode": ("myyuv_huffman_encode", [_P, _I64, _P, _P, _P, _P]),
+    "huffman_decode": ("myyuv_huffman_decode",
+                       [_P, _I64, _P, _P, _I64, _P, _P, _P]),
 }
+
+# kernel launches per kernel name (reset the values to count a run)
+launches: Dict[str, int] = {name: 0 for name in SIGNATURES}
+# ptxas's report (registers, stack, spills) of each kernel built here
+ptxas: Dict[str, str] = {}
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -62,28 +85,83 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stderr}")
-    os.replace(tmp, out)
-    return out
+def build_all(names: Iterable[str]) -> None:
+    """Compile ``csrc/<name>.cu`` for every name whose library is not built
+    yet, one nvcc process each, all started together."""
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        jobs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        ptxas[name] = log
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load(name: str):
     """The C entry point of kernel ``name``, built at first use."""
     fn = _loaded.get(name)
     if fn is None:
+        build_all([name])
         symbol, argtypes = SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(build(name))), symbol)
+        fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _loaded[name] = fn
     return fn
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Launch kernel ``name`` with ``args`` (pointers and sizes) on the
+    current stream of CUDA ``device``; raise if the launch was refused;
+    count it."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = load(name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    launches[name] += 1
+
+
+def on_cpu(device: torch.device, name: str) -> bool:
+    """True for the CPU (the wrapper runs the plain version), False for a
+    CUDA device (it launches kernel ``name``); raises for any other."""
+    if device.type == "cpu":
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"no {name} kernel for device {device}")
+    return False
+
+
+def check_tensors(device: torch.device, *specs) -> None:
+    """Each spec (name, tensor, shape, dtype): raise ValueError unless the
+    tensor has that shape and dtype, lies on ``device`` and is
+    contiguous."""
+    for name, t, shape, dtype in specs:
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"{name}: want {dtype} {tuple(shape)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, want {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+
+
+def check_aligned(name: str, t: torch.Tensor) -> None:
+    """Raise ValueError unless ``t`` starts on a 16-byte boundary (the
+    kernels read coefficient rows with 16-byte vector loads)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} does not start on a 16-byte boundary")

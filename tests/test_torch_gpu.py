@@ -1,6 +1,7 @@
-"""The CUDA kernels K1 and K2 against their plain PyTorch versions on the
-card. Marked ``gpu``: they skip where no CUDA device is present, and run
-with ``python -m pytest tests/test_torch_gpu.py`` on a machine with one.
+"""The CUDA kernels K1-K6 against their plain PyTorch versions on the
+card, and the staged route and batch API against the fused route. Marked
+``gpu``: they skip where no CUDA device is present, and run with
+``python -m pytest tests/test_torch_gpu.py`` on a machine with one.
 
 Tolerance: exact equality (bytes, sizes, pixels, error codes)."""
 
@@ -10,6 +11,7 @@ import torch
 
 from myyuv_tpu_torch.engine import device_stream, pipeline
 from myyuv_tpu_torch.entropy import decode, encode
+from myyuv_tpu_torch.entropy import device as edev
 from myyuv_tpu_torch.kernels import probe
 
 pytestmark = pytest.mark.gpu
@@ -105,3 +107,118 @@ def test_cuda_and_cpu_files_identical(rng, cuda):
     assert a.to_bytes() == b.to_bytes()
     assert (pipeline.decompress_dct(a, "cuda").to_bytes()
             == pipeline.decompress_dct(b, "cpu").to_bytes())
+
+
+def _kind_planes(rng, kind, h, w, cuda):
+    return [torch.from_numpy(probe.content_kind(rng, kind, s)).to(cuda)
+            for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+
+
+@pytest.mark.parametrize("shape", [(16, 16), (736, 992)])
+@pytest.mark.parametrize("q", [1, 10, 35, 50, 75, 90, 100])
+def test_staged_kernels_match_plain(rng, cuda, shape, q):
+    """K3, K5, K6 and K4 against their plain versions on five content
+    kinds, and each staged pair against the fused kernel it splits."""
+    from myyuv_tpu_torch.kernels import transform
+    h, w = shape
+    dct, qt = pipeline.codec_params([q] * 3, cuda)
+    for kind in probe.KINDS:
+        planes = _kind_planes(rng, kind, h, w, cuda)
+        coeffs = transform.dct_quantize_blocks(*planes, qt, dct)
+        assert coeffs.is_cuda and torch.equal(
+            coeffs, transform.dct_quantize_blocks_plain(*planes, qt, dct))
+        lanes = encode.encode_blocks(coeffs)
+        for g, p, f in zip(lanes, edev.encode_lanes(coeffs),
+                           encode.dct_encode_blocks(*planes, qt, dct)):
+            assert torch.equal(g, p) and torch.equal(g, f), kind
+        sizes = lanes[1]
+        content = device_stream.compact_chunks(lanes[0], sizes)
+        offsets = torch.cumsum(sizes, 0, dtype=torch.int64) - sizes
+        got = decode.decode_blocks(content, sizes, offsets)
+        want = decode.decode_blocks_plain(content, sizes, offsets)
+        for g, p in zip(got, want):
+            assert torch.equal(g, p), kind
+        assert torch.equal(got[0], coeffs) and not got[1].any()
+        pix = transform.dequantize_idct_blocks(got[0], qt, dct, h, w)
+        fused = decode.decode_idct_blocks(content, sizes, offsets, qt, dct,
+                                          h, w)
+        for g, p, f in zip(pix, transform.dequantize_idct_blocks_plain(
+                got[0], qt, dct, h, w), fused):
+            assert torch.equal(g, p) and torch.equal(g, f), kind
+
+
+def test_k5_on_coefficients_no_dct_makes(rng, cuda):
+    c = rng.integers(-32768, 32768, (300, 64)).astype(np.int16)
+    c[0] = 0
+    c[1] = -1024
+    c[2] = 1023
+    c[3] = np.iinfo(np.int16).max
+    c[4, ::2] = np.iinfo(np.int16).min
+    c[5] = np.arange(64) * 1021 - 32000      # 64 distinct symbols
+    coeffs = torch.from_numpy(c).to(cuda)
+    got = encode.encode_blocks(coeffs)
+    for g, p in zip(got, edev.encode_lanes(coeffs)):
+        assert torch.equal(g, p)
+    assert not got[2].any() and int(got[1].max()) <= 255
+
+
+def test_k6_codes_match_k2_on_corrupt_chunks(rng, cuda):
+    h, w = 32, 64
+    planes = [torch.from_numpy(p).to(cuda) for p in _frame(rng, h, w)]
+    dct, qt = pipeline.codec_params([50] * 3, cuda)
+    sizes, content = device_stream.compress_frame(*planes, qt, dct)
+    content = content.clone()
+    offsets = torch.cumsum(sizes, 0, dtype=torch.int64) - sizes
+    for b, flip in ((0, 2), (5, 0), (9, 3)):
+        content[offsets[b] + flip] ^= 0x5A
+    sizes = sizes.clone()
+    sizes[20] = 2
+    offsets = torch.cumsum(sizes, 0, dtype=torch.int64) - sizes
+    offsets[30] = content.numel() - 2
+    offsets[31] = content.numel() + 100
+    coeffs, err = decode.decode_blocks(content, sizes, offsets)
+    want = decode.decode_blocks_plain(content, sizes, offsets)
+    assert torch.equal(coeffs, want[0]) and torch.equal(err, want[1])
+    k2 = decode.decode_idct_blocks(content, sizes, offsets, qt, dct, h, w)
+    assert torch.equal(err, k2[3]) and err[20] == 1 and err[0] != 0
+    assert not coeffs[err != 0].any()
+
+
+def test_staged_route_and_batch_equal_fused_on_card(rng, cuda):
+    from myyuv_tpu_torch.engine import batch
+    h, w, b = 64, 128, 3
+    dct, qt = pipeline.codec_params([75] * 3, cuda)
+    frames = [_frame(rng, h, w) for _ in range(b)]
+    staged = device_stream.compress_frame_to_streams(frames[0], qt, dct,
+                                                     fused=False)
+    fused = device_stream.compress_frame_to_streams(frames[0], qt, dct)
+    for (gs, gc), (fs, fc) in zip(staged, fused):
+        assert np.array_equal(gs, fs) and np.array_equal(gc, fc)
+    for a, f in zip(device_stream.decompress_streams_to_frame(
+            fused, qt, dct, h, w, fused=False),
+            device_stream.decompress_streams_to_frame(fused, qt, dct, h, w)):
+        assert np.array_equal(a, f)
+    stack = [np.stack([f[i] for f in frames]) for i in range(3)]
+    per_frame = device_stream.compress_batch_to_streams(stack, qt, dct)
+    for f in range(b):
+        one = device_stream.compress_frame_to_streams(frames[f], qt, dct)
+        for (gs, gc), (ws, wc) in zip(per_frame[f], one):
+            assert np.array_equal(gs, ws) and np.array_equal(gc, wc)
+    t = [torch.from_numpy(p).to(cuda) for p in stack]
+    (ry, ru, rv), total, ok = device_stream.roundtrip_batch(*t, qt, dct)
+    sizes, content = device_stream.compress_batch(*t, qt, dct)
+    assert bool(ok) and int(total) == content.numel()
+    for g, r in zip(device_stream.decompress_batch(
+            content, sizes, qt, dct, b, h, w), (ry, ru, rv)):
+        assert torch.equal(g, r)
+    (py, pu, pv), m = batch.roundtrip_step(*t, *qt)
+    assert torch.equal(py, ry) and torch.equal(pu, ru)
+    assert torch.equal(pv, rv) and int(m["symbol_hist"].sum()) == b * (
+        (h // 8) * (w // 8) + 2 * (h // 16) * (w // 16)) * 64
+    from myyuv_tpu_torch.kernels import transform
+    coeffs = transform.dct_quantize_blocks_plain(
+        *[p.view(-1, p.shape[-1]) for p in t], qt, dct)
+    sym = coeffs.cpu().numpy().astype(np.int32).ravel() + 1024
+    counted = np.bincount(sym[(sym >= 0) & (sym < batch.NUM_SYMBOLS)],
+                          minlength=batch.NUM_SYMBOLS)
+    assert np.array_equal(m["symbol_hist"].cpu().numpy(), counted)
