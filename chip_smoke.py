@@ -11,13 +11,15 @@ failure ending the run with a non-zero exit code:
 
 1. environment: Python, torch, CUDA and nvcc versions, the card;
 2. build of the six kernels, timed, with ptxas's registers, stack frame and
-   spills per kernel;
+   spills per kernel; the lane-group encoders K1 and K5 must use no local
+   memory (0-byte stack frame, no spills);
 3. on ten 4032x3008 frames (five content kinds: noise, gradient, flat,
    impulse, banded; q50 and q90; the contraction-probe blocks in every
    frame): K1 (csrc/dct_encode.cu), K3 (dct_quantize.cu) and K5
    (huffman_encode.cu) against their plain PyTorch versions, and K5(K3(x))
    against K1(x): coefficients, chunk bytes, sizes and flags identical;
-   K5 on int16 coefficients no DCT produces against its plain version;
+   K5 on int16 coefficients no DCT produces and on the encoder families
+   (``probe.encoder_families``) against its plain version;
 4. on those frames' streams: K2 (decode_idct.cu), K6 (huffman_decode.cu)
    and K4 (dequantize_idct.cu) against their plain versions, K4(K6(s))
    against K2(s), and, on a stream with corrupt chunks, K6's and K2's error
@@ -106,23 +108,6 @@ def nvidia_smi() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = REPS) -> float:
-    """Median device time of fn() in ms over CUDA events, after warm-up."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def host_ms(fn, reps: int = REPS) -> float:
     """Median host-clock time of fn() in ms, each run ending in a sync."""
     fn()
@@ -184,13 +169,13 @@ def main() -> int:
             build.launches[k] = 0
 
     t0 = time.perf_counter()
-    build.build_all(KERNELS)
+    logs = build.build_all(KERNELS)
     for name in KERNELS:
         build.load(name)
     print(f"[2 build] {len(KERNELS)} kernels for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name in KERNELS:
-        log = build.ptxas.get(name, "")
+        log = logs.get(name, "")
         regs = re.search(r"Used (\d+) registers", log)
         stack = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", log)
@@ -198,6 +183,9 @@ def main() -> int:
               + (f"{regs.group(1)} registers, {stack.group(1)} B stack, "
                  f"{stack.group(2)}/{stack.group(3)} B spill st/ld"
                  if regs and stack else "no report (library cached)"))
+        if name in ("dct_encode", "huffman_encode") and stack:
+            check(stack.groups() == ("0", "0", "0"),
+                  f"{name} uses local memory: {stack.group(0)}")
 
     errs = dict.fromkeys(KERNELS, 0)
     rng = np.random.default_rng(2026)
@@ -235,12 +223,19 @@ def main() -> int:
     extremes[0], extremes[1], extremes[2] = 32767, -32768, -1024
     same(encode.encode_blocks(extremes), edev.encode_lanes(extremes), errs,
          "huffman_encode", "K5 differs on int16 extremes")
+    families = probe.encoder_families(np.random.default_rng(7))
+    for name, rows in families.items():
+        rows = torch.from_numpy(rows).to(dev)
+        same(encode.encode_blocks(rows), edev.encode_lanes(rows), errs,
+             "huffman_encode", f"K5 differs on encoder family {name}")
     print(f"[3 K1/K3/K5 vs plain] {len(streams)} frames {W4K}x{H4K} "
           f"(kinds {','.join(probe.KINDS)}; "
           f"q{'/'.join(map(str, QUALITIES))}; "
           f"{probe_blocks.shape[0]} probe blocks): coefficients, bytes, "
           f"sizes, err identical; K5(K3(x)) == K1(x); K5 == plain on 4096 "
-          f"int16-extreme blocks; max_abs_err K1 {errs['dct_encode']} "
+          f"int16-extreme blocks and on the {len(families)} encoder "
+          f"families ({sum(len(r) for r in families.values())} rows); "
+          f"max_abs_err K1 {errs['dct_encode']} "
           f"K3 {errs['dct_quantize']} K5 {errs['huffman_encode']}",
           flush=True)
 
@@ -302,14 +297,7 @@ def main() -> int:
         tmp = Path(tmp)
 
         def synthetic_bmp(h, w, path):
-            yy, xx = np.mgrid[0:h, 0:w]
-            px = np.empty((h, w, 4), np.uint8)
-            noise = rng.integers(-6, 7, (3, h, w))
-            for c, (fy, fx) in enumerate(((0.11, 0.07), (0.05, 0.13),
-                                          (0.09, 0.03))):
-                base = 128 + 100 * np.sin(yy * fy / 7) * np.cos(xx * fx / 9)
-                px[..., c] = np.clip(base + noise[c], 0, 255).astype(np.uint8)
-            px[..., 3] = 255
+            px = probe.smooth_picture(rng, h, w)
             bmp.BMPImage.from_pixels(px).dump(path)
             return px
 
@@ -504,15 +492,16 @@ def main() -> int:
             lambda: decode.decode_blocks_plain(stream, sizes, offsets),
             bound_ms(stream.numel() + n * 12 + n * (128 + 4))),
     }
-    times = {name: (cuda_ms(k), cuda_ms(p), b)
+    times = {name: (probe.cuda_ms(k, REPS), probe.cuda_ms(p, REPS), b)
              for name, (k, p, b) in runs.items()}
     print(f"[9 times] {card} | {W4K}x{H4K} q50, median of {REPS}, CUDA "
           f"events: " + ", ".join(
               f"{name} {t:.4f} ms (plain {p:.4f}, bound {b[0]:.4f} by "
               f"{b[1]})" for name, (t, p, b) in times.items()), flush=True)
     nplanes, nqt, ndct, ncoeffs = noise
-    k1_noise = cuda_ms(lambda: encode.dct_encode_blocks(*nplanes, nqt, ndct))
-    k5_noise = cuda_ms(lambda: encode.encode_blocks(ncoeffs))
+    k1_noise = probe.cuda_ms(
+        lambda: encode.dct_encode_blocks(*nplanes, nqt, ndct), REPS)
+    k5_noise = probe.cuda_ms(lambda: encode.encode_blocks(ncoeffs), REPS)
     print(f"[9 times] {card} | phase 3's noise frame {W4K}x{H4K} q50, "
           f"median of {REPS}, CUDA events: dct_encode {k1_noise:.4f} ms, "
           f"huffman_encode {k5_noise:.4f} ms", flush=True)

@@ -1,8 +1,9 @@
-// Per-block transform stages, one 8x8 block per calling thread: the
-// DCT + quantize of K1 (dct_encode.cu) and K3 (dct_quantize.cu), and the
-// dequantize + IDCT of K2 (decode_idct.cu) and K4 (dequantize_idct.cu). The
-// fused and the staged kernels call the same functions, so their
-// coefficients and pixels cannot drift apart.
+// Per-block transform stages: the DCT + quantize of K3 (dct_quantize.cu),
+// one 8x8 block per calling thread, and of K1 (dct_encode.cu), one block per
+// group of lanes; the dequantize + IDCT of K2 (decode_idct.cu) and K4
+// (dequantize_idct.cu), one block per calling thread. K1's and K3's
+// versions compute every coefficient with the same chain, so the fused and
+// the staged route's coefficients cannot drift apart.
 //
 // Exactness (applyDCTBlock / restoreDCTBlock, DCT.cpp:232-277,325-361):
 // every product and sum of the chains is __fmul_rn/__fadd_rn, k ascending,
@@ -41,6 +42,63 @@ __device__ __forceinline__ void dct_quantize_block(const uint8_t* px,
         acc = __fadd_rn(acc, __fmul_rn(t[i * 8 + k], c[j * 8 + k]));
       coef[i * 8 + j] = int16_t(int(roundf(__fdiv_rn(acc, q[i * 8 + j]))));
     }
+}
+
+// 8 consecutive floats of 16-byte aligned shared memory as two vector loads.
+__device__ __forceinline__ void load_row(const float* p, float (&v)[8]) {
+  const float4 lo = reinterpret_cast<const float4*>(p)[0];
+  const float4 hi = reinterpret_cast<const float4*>(p)[1];
+  v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+  v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+}
+
+// K1's transform, one 8x8 block per group of 8 lanes, with
+// dct_quantize_block's chains: lane `lane` computes row `lane` of C . B and
+// then of the quantized (C . B) . C^T into out, in registers. x is the
+// group's 64-float slice of shared memory for the pixels - 128; c and q are
+// 16-byte aligned. A group with active false reads no pixels and computes
+// on zeros. Every lane of the warp calls this.
+__device__ __forceinline__ void dct_quantize_group(
+    const uint8_t* px, int stride, bool active, const float* c,
+    const float* q, float* x, int lane, int16_t (&out)[8]) {
+  const uint8_t* src = px + int64_t(lane) * stride;
+  uint32_t pix[2] = {0, 0};  // the lane's 8 pixels, 4 to a word
+  if (active) {
+    if ((reinterpret_cast<uintptr_t>(src) & 7) == 0) {  // one 8-byte load
+      const uint2 w = *reinterpret_cast<const uint2*>(src);
+      pix[0] = w.x, pix[1] = w.y;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) pix[k / 4] |= uint32_t(src[k]) << (8 * (k % 4));
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    x[lane * 8 + k] = float((pix[k / 4] >> (8 * (k % 4))) & 0xFF) - 128.0f;
+  __syncwarp();
+  float crow[8];
+  load_row(c + lane * 8, crow);
+  float cb[8];  // row `lane` of C . B, k ascending in every chain
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    float xr[8];
+    load_row(x + kk * 8, xr);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      cb[k] = kk == 0 ? __fmul_rn(crow[0], xr[k])
+                      : __fadd_rn(cb[k], __fmul_rn(crow[kk], xr[k]));
+  }
+  float qr[8];
+  load_row(q + lane * 8, qr);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {  // (C . B) . C^T, quantized
+    float cj[8];
+    load_row(c + k * 8, cj);
+    float acc = __fmul_rn(cb[0], cj[0]);
+#pragma unroll
+    for (int kk = 1; kk < 8; ++kk) acc = __fadd_rn(acc, __fmul_rn(cb[kk], cj[kk]));
+    out[k] = int16_t(int(roundf(__fdiv_rn(acc, qr[k]))));
+  }
 }
 
 // Row-major coefficients -> 8x8 pixels at px (row stride `stride`).

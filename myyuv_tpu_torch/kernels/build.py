@@ -6,14 +6,16 @@ interface. The first call of ``load(name)`` in a process compiles it for
 Hopper (``sm_90a``) into ``build/myyuv_tpu_torch/`` at the repository root,
 under a file name that carries a hash of the sources and flags, so an
 edited source or header never loads a stale library; ``build_all`` compiles
-several at once, one nvcc process each. Nothing is built at import.
+several at once, one nvcc process each, from this checkout's ``csrc/`` or
+from another source tree (``open_library`` then opens what it built).
+Nothing is built at import.
 
 Flags: ``-fmad=false`` keeps nvcc from contracting a multiply and an add
 into one FMA (the kernels also spell every product and sum of the DCT
 chains with ``__fmul_rn`` / ``__fadd_rn``), and there is no
 ``-use_fast_math``: ``__fdiv_rn`` and ``roundf`` stay IEEE-exact.
 ``-Xptxas -v`` reports each kernel's registers, stack frame and spills
-(kept in ``ptxas``).
+(``build_all`` returns the reports).
 
 The wrappers (``kernels/transform.py``, ``entropy/encode.py``,
 ``entropy/decode.py``) call ``launch``, which counts every launch in
@@ -57,8 +59,6 @@ SIGNATURES = {
 
 # kernel launches per kernel name (reset the values to count a run)
 launches: Dict[str, int] = {name: 0 for name in SIGNATURES}
-# ptxas's report (registers, stack, spills) of each kernel built here
-ptxas: Dict[str, str] = {}
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}
 
@@ -74,42 +74,53 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _sources(name: str):
-    return [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh"))
-
-
-def library_path(name: str) -> Path:
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where ``<csrc>/<name>.cu`` is built: the name carries a hash of the
+    flags, the source and every header of ``csrc``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources(name):
+    for src in [csrc / f"{name}.cu"] + sorted(csrc.glob("*.cuh")):
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names: Iterable[str]) -> None:
-    """Compile ``csrc/<name>.cu`` for every name whose library is not built
-    yet, one nvcc process each, all started together."""
+def build_all(names: Iterable[str], csrc: Path = CSRC) -> Dict[str, str]:
+    """Compile ``<csrc>/<name>.cu`` for every name whose library is not
+    built yet, one nvcc process each, all started together. Returns
+    nvcc's output, with ptxas's report (registers, stack frame, spills), of
+    each library it compiled."""
     jobs = []
     for name in names:
-        out = library_path(name)
+        out = library_path(name, csrc)
         if out.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+               str(csrc / f"{name}.cu")]
         jobs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
-    failed = []
+    logs, failed = {}, []
     for name, out, tmp, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
-        ptxas[name] = log
+        logs[name] = log
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
+    return logs
+
+
+def open_library(name: str, csrc: Path = CSRC):
+    """The C entry point of kernel ``name`` as built from ``csrc`` by
+    ``build_all``."""
+    symbol, argtypes = SIGNATURES[name]
+    fn = getattr(ctypes.CDLL(str(library_path(name, csrc))), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def load(name: str):
@@ -117,11 +128,7 @@ def load(name: str):
     fn = _loaded.get(name)
     if fn is None:
         build_all([name])
-        symbol, argtypes = SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _loaded[name] = fn
+        fn = _loaded[name] = open_library(name)
     return fn
 
 

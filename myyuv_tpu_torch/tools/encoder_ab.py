@@ -1,0 +1,137 @@
+"""A/B timing of the encoder kernels K1 (``dct_encode``) and K5
+(``huffman_encode``) across source trees, on one CUDA card.
+
+Run from the repository root on a machine with a CUDA card::
+
+    python3 -m myyuv_tpu_torch.tools.encoder_ab [--other LABEL=DIR ...]
+
+Builds K1 and K5 with ``kernels/build.py`` (all builds in parallel) from
+this checkout's ``csrc/`` (label ``this``) and from each ``DIR`` given by
+``--other`` (the ``myyuv_tpu_torch/csrc`` of another commit, unpacked for
+example with ``git archive <commit> myyuv_tpu_torch/csrc | tar -x -C
+build/parent``), and prints each build's ptxas registers, stack frame and
+spills. On two 4032x3008 q50 frames -- ``cli``, ``probe.smooth_picture``
+converted to IYUV as ``-to_yuv IYUV`` does, and ``noise``, uniform random
+planes -- it holds every build's lanes, sizes and err to the plain
+versions', then times every build's K1 and K5 with ``probe.cuda_ms``
+(chip_smoke's timer), calling the C entry points directly: 7 rounds, the
+builds in turns (forward, then backward order), one reading each. It
+prints the median per build, kernel and frame beside the card's name and
+power limit, and one JSON line. As a yardstick it also times
+``lanes.zero_()``, the write of the 256-byte lanes alone that both
+kernels' output contract costs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from myyuv_tpu_torch.engine import pipeline
+from myyuv_tpu_torch.entropy import device as edev
+from myyuv_tpu_torch.entropy import encode
+from myyuv_tpu_torch.kernels import build, probe, transform
+from myyuv_tpu_torch.kernels import device as kdev
+
+H, W = 3008, 4032
+REPS = 7
+KERNELS = ("dct_encode", "huffman_encode")
+
+
+def ptxas_summary(log: str) -> str:
+    regs = re.search(r"Used (\d+) registers", log)
+    stack = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                      r"stores, (\d+) bytes spill loads", log)
+    if not (regs and stack):
+        return "no report (library cached)"
+    return (f"{regs.group(1)} registers, {stack.group(1)} B stack, "
+            f"{stack.group(2)}/{stack.group(3)} B spill st/ld")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", nargs="*", default=[], metavar="LABEL=DIR",
+                    help="csrc/ of another commit, under a label")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("encoder_ab: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    trees = {"this": build.CSRC}
+    for spec in args.other:
+        label, _, path = spec.partition("=")
+        trees[label] = Path(path).resolve()
+    reports, fns = {}, {}
+    for label, csrc in trees.items():
+        logs = build.build_all(KERNELS, csrc)
+        reports[label] = {k: ptxas_summary(logs.get(k, "")) for k in KERNELS}
+        fns[label] = {k: build.open_library(k, csrc) for k in KERNELS}
+        for name in KERNELS:
+            print(f"[ptxas] {label} {name}: {reports[label][name]}")
+
+    rng = np.random.default_rng(2026)
+    cli = [p.to(dev) for p in kdev.bgrx_to_iyuv(torch.from_numpy(
+        probe.smooth_picture(rng, H, W)))]
+    noise = [torch.from_numpy(probe.content_kind(rng, "noise", s)).to(dev)
+             for s in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
+    dct, qt = pipeline.codec_params([50] * 3, dev)
+    n = transform.frame_blocks(H, W)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    results = {}
+    for frame, planes in (("cli", cli), ("noise", noise)):
+        coeffs = transform.dct_quantize_blocks(*planes, qt, dct)
+        want = encode.dct_encode_blocks_plain(*planes, qt, dct)
+        check5 = edev.encode_lanes(coeffs)
+        lanes = torch.empty((n, 256), dtype=torch.uint8, device=dev)
+        sizes = torch.empty(n, dtype=torch.int32, device=dev)
+        err = torch.empty(n, dtype=torch.int32, device=dev)
+        outs = (lanes.data_ptr(), sizes.data_ptr(), err.data_ptr(), stream)
+        calls = {
+            "dct_encode": (want, lambda f: f(
+                *(p.data_ptr() for p in planes), H, W, qt.data_ptr(),
+                dct.data_ptr(), *outs)),
+            "huffman_encode": (check5, lambda f: f(
+                coeffs.data_ptr(), n, *outs)),
+        }
+        for name, (plain, call) in calls.items():
+            for label in trees:
+                lanes.fill_(0xAB)
+                if call(fns[label][name]):
+                    raise SystemExit(f"{label} {name}: launch failed")
+                torch.cuda.synchronize()
+                for g, p in zip((lanes, sizes, err), plain):
+                    if not torch.equal(g, p):
+                        raise SystemExit(f"{label} {name} differs from the "
+                                         f"plain version on {frame}")
+            times = {label: [] for label in trees}
+            order = list(trees)
+            for r in range(REPS):
+                for label in (order if r % 2 == 0 else order[::-1]):
+                    times[label].append(probe.cuda_ms(
+                        lambda: call(fns[label][name]), 1))
+            for label in trees:
+                results[f"{name} {frame} {label}"] = statistics.median(
+                    times[label])
+        results[f"lanes.zero_ {frame} -"] = probe.cuda_ms(lanes.zero_, REPS)
+        print(f"[times] {card} | {W}x{H} q50 {frame} frame, median of "
+              f"{REPS}, CUDA events: " + ", ".join(
+                  f"{k.split()[0]} {k.split()[2]} {v:.4f} ms"
+                  for k, v in results.items() if k.split()[1] == frame),
+              flush=True)
+    print(json.dumps({"card": card, "ms": results, "ptxas": reports}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

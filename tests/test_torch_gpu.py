@@ -162,6 +162,60 @@ def test_k5_on_coefficients_no_dct_makes(rng, cuda):
     assert not got[2].any() and int(got[1].max()) <= 255
 
 
+# K1's case for each encoder family: plane content ("mid" is 128
+# everywhere) and quantizer entries (q everywhere, or 1 at the kept
+# row-major positions and 4096, which zeroes any coefficient, elsewhere).
+# Its transform reaches the family's shape where a u8 picture can; int16
+# extremes and aliasing symbols lie beyond a DCT's range, so those take the
+# widest symbols q = 1 gives. 48x80 is 90 blocks, no multiple of the 32
+# blocks a CTA codes.
+_K1_CASES = {
+    "all_zero": ("mid", 1, None), "first_only": ("noise", 1, [0]),
+    "last_only": ("noise", 1, [63]), "one_symbol": ("flat", 1, None),
+    "n_sym_2": ("noise", 1, [0, 63]), "merge_ties": ("noise", 64, None),
+}
+
+
+@pytest.mark.parametrize("family", probe.ENCODER_FAMILIES)
+def test_encoder_families_match_plain(rng, cuda, family):
+    """K5 on each family of ``probe.encoder_families`` and K1 on frames
+    that reach it: lanes, sizes and err identical to the plain versions."""
+    coeffs = torch.from_numpy(probe.encoder_families(rng)[family]).to(cuda)
+    got = encode.encode_blocks(coeffs)
+    for g, p in zip(got, edev.encode_lanes(coeffs)):
+        assert g.is_cuda and torch.equal(g, p)
+    kind, q, keep = _K1_CASES.get(family, ("noise", 1, None))
+    h, w = 48, 80
+    planes = []
+    for shape in ((h, w), (h // 2, w // 2), (h // 2, w // 2)):
+        p = (np.full(shape, 128, np.uint8) if kind == "mid"
+             else probe.content_kind(rng, kind, shape))
+        planes.append(torch.from_numpy(p).to(cuda))
+    qt = torch.full((3, 64), float(q if keep is None else 4096))
+    if keep is not None:
+        qt[:, keep] = 1.0
+    qt = qt.view(3, 8, 8).to(cuda)
+    dct, _ = pipeline.codec_params([50] * 3, cuda)
+    got = encode.dct_encode_blocks(*planes, qt, dct)
+    for g, p in zip(got, encode.dct_encode_blocks_plain(*planes, qt, dct)):
+        assert g.is_cuda and torch.equal(g, p)
+
+
+def test_encoder_k1_reads_planes_off_8_byte_boundaries(rng, cuda):
+    """K1 loads a lane's 8 pixels at once only from an 8-byte aligned row;
+    planes that start off that boundary take its byte loads."""
+    h, w = 32, 64
+    planes = []
+    for i, shape in enumerate(((h, w), (h // 2, w // 2), (h // 2, w // 2))):
+        buf = torch.from_numpy(rng.integers(0, 256, shape[0] * shape[1] + 8,
+                                            np.uint8)).to(cuda)
+        planes.append(buf[i + 1:i + 1 + shape[0] * shape[1]].view(shape))
+    dct, qt = pipeline.codec_params([90] * 3, cuda)
+    got = encode.dct_encode_blocks(*planes, qt, dct)
+    for g, p in zip(got, encode.dct_encode_blocks_plain(*planes, qt, dct)):
+        assert torch.equal(g, p)
+
+
 def test_k6_codes_match_k2_on_corrupt_chunks(rng, cuda):
     h, w = 32, 64
     planes = [torch.from_numpy(p).to(cuda) for p in _frame(rng, h, w)]

@@ -142,6 +142,39 @@ def test_plain_k5_on_int16_extremes_matches_native(rng):
     assert not err.any() and sizes.max() <= 255
 
 
+def _tree_group_lengths(lane):
+    """The code length of each tree group of one chunk, in stored order."""
+    pos, lens = 3, []
+    while pos - 3 < lane[2]:
+        info = int(lane[pos])
+        lens.append((info >> 5) + 1)
+        pos += 1 + (((info & 31) + 1) * 11 + 7) // 8
+    return lens
+
+
+@pytest.mark.parametrize("family", probe.ENCODER_FAMILIES)
+def test_plain_k5_matches_native_on_encoder_families(rng, family):
+    """The block families that stress K1's and K5's lane-group encoder
+    (``probe.encoder_families``): the plain encoder's bytes equal
+    native's, and each family has the shape it claims."""
+    families = probe.encoder_families(rng)
+    assert tuple(families) == probe.ENCODER_FAMILIES
+    c = families[family]
+    sizes, content, err = _k5_plain(c)
+    want_sizes, want = native.encode_blocks(c)
+    np.testing.assert_array_equal(sizes, want_sizes.astype(np.int32))
+    np.testing.assert_array_equal(content, want)
+    assert not err.any()
+    if family.startswith("n_sym_"):
+        for row in c:
+            assert np.unique(row).size == int(family[6:])
+    if family in ("long_run", "n_sym_64"):  # one length, two tree groups
+        lanes = encode.encode_blocks(torch.from_numpy(c))[0].numpy()
+        for lane in lanes:
+            lens = _tree_group_lengths(lane)
+            assert any(a == b for a, b in zip(lens, lens[1:])), lens
+
+
 def _k6_plain(sizes, content, offsets=None):
     s = torch.from_numpy(np.asarray(sizes, np.int32))
     if offsets is None:

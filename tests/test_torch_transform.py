@@ -127,3 +127,21 @@ def test_codec_params_from_jax_bit_identical(quality):
         assert a.dtype == torch.float32 and a.shape == (3, 8, 8)
         assert np.array_equal(a.numpy().view(np.uint32),
                               qt.numpy().view(np.uint32))
+
+
+def test_library_path_follows_the_source_tree(tmp_path):
+    """A kernel's library is named by the flags and by the contents of its
+    source and of every header of its tree: a copy of ``csrc/`` maps to the
+    same library, a copy with an edited header to another."""
+    import shutil
+
+    from myyuv_tpu_torch.kernels import build
+
+    copy = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, copy)
+    for name in build.SIGNATURES:
+        assert build.library_path(name, copy) == build.library_path(name)
+    hdr = copy / "block_huffman.cuh"
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    assert (build.library_path("huffman_encode", copy)
+            != build.library_path("huffman_encode"))
