@@ -11,8 +11,8 @@ failure ending the run with a non-zero exit code:
 
 1. environment: Python, torch, CUDA and nvcc versions, the card;
 2. build of the six kernels, timed, with ptxas's registers, stack frame and
-   spills per kernel; the lane-group encoders K1 and K5 must use no local
-   memory (0-byte stack frame, no spills);
+   spills per kernel; the lane-group encoders K1 and K5 and decoders K2 and
+   K6 must use no local memory (0-byte stack frame, no spills);
 3. on ten 4032x3008 frames (five content kinds: noise, gradient, flat,
    impulse, banded; q50 and q90; the contraction-probe blocks in every
    frame): K1 (csrc/dct_encode.cu), K3 (dct_quantize.cu) and K5
@@ -22,8 +22,10 @@ failure ending the run with a non-zero exit code:
    (``probe.encoder_families``) against its plain version;
 4. on those frames' streams: K2 (decode_idct.cu), K6 (huffman_decode.cu)
    and K4 (dequantize_idct.cu) against their plain versions, K4(K6(s))
-   against K2(s), and, on a stream with corrupt chunks, K6's and K2's error
-   codes against each other and the plain version's;
+   against K2(s); on a stream with corrupt chunks and on the decoder
+   families (``probe.decoder_families``: every reachable error code, valid
+   edge cases, offsets outside the content), K6 and K2 against their plain
+   versions and K6's error codes against K2's;
 5. the main path through the CLI (``-to_yuv IYUV``, ``-compress DCT 50``,
    ``-decompress``) on a synthetic 4032x3008 XRGB8888 BMP, the launch counts
    set to 0 just before and read just after; the file's payload must equal
@@ -42,12 +44,15 @@ failure ending the run with a non-zero exit code:
    ``bincount`` of the plain coefficients;
 8. every kernel was launched by the path that drives it;
 9. times with CUDA events (median of 7): the six kernels against their
-   plain versions on the CLI frame at q50; staged against fused compress and
-   decompress and end-to-end ``compress_dct``/``decompress_dct`` on the
-   host clock; the 8 x 1080p ``roundtrip_batch`` and ``roundtrip_step``.
+   plain versions on the CLI frame at q50, and the six kernels on phase 3's
+   noise frame at q50 (the entropy kernels' slowest content); staged against
+   fused compress and decompress and end-to-end
+   ``compress_dct``/``decompress_dct`` on the host clock; the 8 x 1080p
+   ``roundtrip_batch`` and ``roundtrip_step``.
 
 It prints a JSON line with one entry per kernel (its launches on the path
-that drives it, max abs error against its plain version, times, and the
+that drives it, max abs error against its plain version, times on the CLI
+frame and, as ``noise_ms``, on the noise frame, and the
 bound: the larger of the bytes it must move over 3.35 TB/s and its float32
 operations over 67 TFLOP/s, NVIDIA's H100 SXM figures; an encoder's output
 counts the measured stream's chunk bytes, not the 256-byte lanes the port
@@ -183,7 +188,8 @@ def main() -> int:
               + (f"{regs.group(1)} registers, {stack.group(1)} B stack, "
                  f"{stack.group(2)}/{stack.group(3)} B spill st/ld"
                  if regs and stack else "no report (library cached)"))
-        if name in ("dct_encode", "huffman_encode") and stack:
+        if name in ("dct_encode", "huffman_encode", "decode_idct",
+                    "huffman_decode") and stack:
             check(stack.groups() == ("0", "0", "0"),
                   f"{name} uses local memory: {stack.group(0)}")
 
@@ -261,6 +267,7 @@ def main() -> int:
               f"K4(K6(s)) differs from K2(s): {tag}")
         if kind == "noise" and q == 50:
             bad_stream, bad_sizes = stream.clone(), sizes.clone()
+            noise_stream = (stream, sizes, offsets)
     del streams
     offsets = torch.cumsum(bad_sizes, 0, dtype=torch.int64) - bad_sizes
     nb = bad_sizes.numel()
@@ -285,10 +292,41 @@ def main() -> int:
     flagged = torch.nonzero(got[3]).flatten().tolist()
     check(7 in flagged and short_b in flagged and int(got[3][short_b]) == 1,
           f"corrupt chunks not flagged: {flagged[:10]}")
+    dfam = probe.decoder_families(np.random.default_rng(7))
+    fam_codes = set()
+    layouts = [(name, arrays) for name, arrays in dfam.items()] + [
+        (f"{name} back to back", probe.back_to_back(*arrays))
+        for name, arrays in dfam.items()]
+    for name, arrays in layouts:
+        content, fsizes, foffsets = (torch.from_numpy(a).to(dev)
+                                     for a in arrays)
+        k6 = decode.decode_blocks(content, fsizes, foffsets)
+        same(k6, decode.decode_blocks_plain(content, fsizes, foffsets), errs,
+             "huffman_decode", f"K6 differs from plain on family {name}")
+        check(not k6[0][k6[1] != 0].any(), f"K6 left a bad block nonzero: "
+              f"{name}")
+        n_f = fsizes.numel()
+        fw = 16 * -(-n_f // 6)                 # 6 blocks per 16 x 16
+        pad = transform.frame_blocks(16, fw) - n_f
+        fsizes = torch.cat([fsizes, fsizes.new_zeros(pad)])
+        foffsets = torch.cat([foffsets, foffsets.new_zeros(pad)])
+        k2 = decode.decode_idct_blocks(content, fsizes, foffsets, qt, dct,
+                                       16, fw)
+        same(k2, decode.decode_idct_blocks_plain(
+            content, fsizes, foffsets, qt, dct, 16, fw), errs,
+            "decode_idct", f"K2 differs from plain on family {name}")
+        check(torch.equal(k2[3][:n_f], k6[1]),
+              f"K6's codes differ from K2's on family {name}")
+        fam_codes |= set(k6[1].tolist())
+    check(fam_codes == {0, 1, 2, 3, 4, 5, 7, 8},
+          f"decoder families reached codes {sorted(fam_codes)}")
     print(f"[4 K2/K6/K4 vs plain] 10 streams: pixels, coefficients and err "
           f"identical; K4(K6(s)) == K2(s); corrupt chunks flagged alike by "
           f"K2, K6 and plain at blocks {flagged[:8]} (codes "
-          f"{[int(got[3][b]) for b in flagged[:8]]}); max_abs_err K2 "
+          f"{[int(got[3][b]) for b in flagged[:8]]}); K2 and K6 == plain "
+          f"on the {len(dfam)} decoder families, with gaps and back to back "
+          f"({sum(a[1].size for a in dfam.values())} chunks, codes "
+          f"{sorted(fam_codes)}); max_abs_err K2 "
           f"{errs['decode_idct']} K6 {errs['huffman_decode']} K4 "
           f"{errs['dequantize_idct']}", flush=True)
 
@@ -499,13 +537,27 @@ def main() -> int:
               f"{name} {t:.4f} ms (plain {p:.4f}, bound {b[0]:.4f} by "
               f"{b[1]})" for name, (t, p, b) in times.items()), flush=True)
     nplanes, nqt, ndct, ncoeffs = noise
-    k1_noise = probe.cuda_ms(
-        lambda: encode.dct_encode_blocks(*nplanes, nqt, ndct), REPS)
-    k5_noise = probe.cuda_ms(lambda: encode.encode_blocks(ncoeffs), REPS)
-    print(f"[9 times] {card} | phase 3's noise frame {W4K}x{H4K} q50, "
-          f"median of {REPS}, CUDA events: dct_encode {k1_noise:.4f} ms, "
-          f"huffman_encode {k5_noise:.4f} ms", flush=True)
-    del noise, nplanes, ncoeffs
+    nstream, nsizes, noffsets = noise_stream
+    noise_runs = {
+        "dct_encode": lambda: encode.dct_encode_blocks(*nplanes, nqt, ndct),
+        "decode_idct": lambda: decode.decode_idct_blocks(
+            nstream, nsizes, noffsets, nqt, ndct, H4K, W4K),
+        "dct_quantize": lambda: transform.dct_quantize_blocks(*nplanes, nqt,
+                                                              ndct),
+        "dequantize_idct": lambda: transform.dequantize_idct_blocks(
+            ncoeffs, nqt, ndct, H4K, W4K),
+        "huffman_encode": lambda: encode.encode_blocks(ncoeffs),
+        "huffman_decode": lambda: decode.decode_blocks(nstream, nsizes,
+                                                       noffsets),
+    }
+    noise_ms = {name: probe.cuda_ms(fn, REPS)
+                for name, fn in noise_runs.items()}
+    print(f"[9 times] {card} | phase 3's noise frame {W4K}x{H4K} q50 "
+          f"({nstream.numel()} stream bytes), median of {REPS}, CUDA "
+          f"events: " + ", ".join(f"{name} {t:.4f} ms"
+                                  for name, t in noise_ms.items()),
+          flush=True)
+    del noise, nplanes, ncoeffs, noise_stream, nstream, noise_runs
 
     def fused_ms(fused):
         c = host_ms(lambda: device_stream.compress_frame(*planes, qt, dct,
@@ -537,6 +589,7 @@ def main() -> int:
          "launches": launches[path_of[name]][name],
          "max_abs_err": errs[name],
          "ms": times[name][0], "plain_ms": times[name][1],
+         "noise_ms": noise_ms[name],
          "bound_ms": times[name][2][0], "bound_by": times[name][2][1],
          "library_ms": None}
         for name in KERNELS]}))

@@ -1,9 +1,10 @@
 // Per-block transform stages: the DCT + quantize of K3 (dct_quantize.cu),
 // one 8x8 block per calling thread, and of K1 (dct_encode.cu), one block per
-// group of lanes; the dequantize + IDCT of K2 (decode_idct.cu) and K4
-// (dequantize_idct.cu), one block per calling thread. K1's and K3's
-// versions compute every coefficient with the same chain, so the fused and
-// the staged route's coefficients cannot drift apart.
+// group of lanes; the dequantize + IDCT of K4 (dequantize_idct.cu), one
+// block per calling thread, and of K2 (decode_idct.cu), one block per group
+// of lanes. The thread and the group version of each compute every value
+// with the same chain, so the fused and the staged route's coefficients and
+// pixels cannot drift apart.
 //
 // Exactness (applyDCTBlock / restoreDCTBlock, DCT.cpp:232-277,325-361):
 // every product and sum of the chains is __fmul_rn/__fadd_rn, k ascending,
@@ -127,9 +128,77 @@ __device__ __forceinline__ void dequantize_idct_block(const int16_t* coef,
     }
 }
 
-__device__ __forceinline__ void zero_block(uint8_t* px, int stride) {
-  for (int i = 0; i < 8; ++i)
-    for (int j = 0; j < 8; ++j) px[int64_t(i) * stride + j] = 0;
+// The DCT matrix in registers for dequantize_idct_group: all of C, and
+// column `lane` of it. c is 16-byte aligned.
+struct IdctRegs {
+  float c[64];
+  float col[8];
+};
+
+__device__ __forceinline__ void load_idct_regs(const float* c, int lane,
+                                               IdctRegs& r) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    float row[8];
+    load_row(c + k * 8, row);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) r.c[k * 8 + j] = row[j];
+    r.col[k] = c[k * 8 + lane];
+  }
+}
+
+// K2's transform, one 8x8 block per group of 8 lanes, with
+// dequantize_idct_block's chains: lane `lane` dequantizes `row`, row `lane`
+// of the block's int16 coefficients, into x (the group's 64-float slice of
+// shared memory), then computes row `lane` of C^T . X and of (C^T . X) . C
+// in registers and stores the row's 8 pixels at px + lane * stride, all 0
+// if bad. q is 16-byte aligned. A group with store false writes nothing.
+// Every lane of the warp calls this.
+__device__ __forceinline__ void dequantize_idct_group(
+    uint4 row, const IdctRegs& c, const float* q, float* x, int lane,
+    bool store, bool bad, uint8_t* px, int stride) {
+  const uint32_t cw[4] = {row.x, row.y, row.z, row.w};
+  float qr[8];
+  load_row(q + lane * 8, qr);
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    x[lane * 8 + k] =
+        __fmul_rn(float(int16_t(cw[k / 2] >> (16 * (k % 2)))), qr[k]);
+  __syncwarp();
+  const float* ccol = c.col;  // column `lane` of C
+  float t[8];  // row `lane` of C^T . X, k ascending in every chain
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    float xr[8];
+    load_row(x + kk * 8, xr);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      t[j] = kk == 0 ? __fmul_rn(ccol[0], xr[j])
+                     : __fadd_rn(t[j], __fmul_rn(ccol[kk], xr[j]));
+  }
+  float acc[8];  // row `lane` of (C^T . X) . C
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      acc[j] = kk == 0 ? __fmul_rn(t[0], c.c[j])
+                       : __fadd_rn(acc[j], __fmul_rn(t[kk], c.c[kk * 8 + j]));
+  }
+  uint32_t pix[2] = {0, 0};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int r = int(roundf(acc[j])) + 128;
+    pix[j / 4] |= uint32_t(r < 0 ? 0 : (r > 255 ? 255 : r)) << (8 * (j % 4));
+  }
+  if (bad) pix[0] = pix[1] = 0;  // a bad block's pixels are 0
+  if (!store) return;
+  uint8_t* dst = px + int64_t(lane) * stride;
+  if ((reinterpret_cast<uintptr_t>(dst) & 7) == 0) {  // one 8-byte store
+    *reinterpret_cast<uint2*>(dst) = make_uint2(pix[0], pix[1]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) dst[k] = uint8_t(pix[k / 4] >> (8 * (k % 4)));
+  }
 }
 
 }  // namespace myyuv

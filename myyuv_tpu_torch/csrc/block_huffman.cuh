@@ -1,9 +1,10 @@
 // Canonical Huffman stages of the codec kernels. The encoder half is the
-// lane-group stage of K1 (dct_encode.cu) and K5 (huffman_encode.cu): a group
-// of kEncodeLanes = 8 lanes codes one 8x8 block. The decoder half serves K2
-// (decode_idct.cu) and K6 (huffman_decode.cu), one block per calling
-// thread. The fused and the staged kernels call the same functions, so
-// their bytes and error codes cannot drift apart.
+// stage of K1 (dct_encode.cu) and K5 (huffman_encode.cu), a group of 8 lanes
+// per 8x8 block; the decoder half is the stage of K2 (decode_idct.cu) and K6
+// (huffman_decode.cu), 32 blocks per warp, staged by the warp and its groups
+// of 8 lanes, each block's serial chain on one lane. The fused and the
+// staged kernels call the same functions, so their bytes and error codes
+// cannot drift apart.
 //
 // Both reproduce the scalar routines of myyuv_tpu/native/entropy.cpp
 // (encode_block :134, huffman_lengths :85, decode_block :245) exactly: its
@@ -320,94 +321,355 @@ __device__ __forceinline__ void stage_coeff_row(const int16_t* row,
   __syncwarp();
 }
 
-// ---- decoder: one block per calling thread ----------------------------
+// ---- decoder: 32 blocks per warp ------------------------------------
+//
+// The decoder computes what myyuv_tpu/entropy/pallas_decode8.py's
+// _payload_body (:203-316) computes: no bit-at-a-time walk, but an 8-bit
+// peek per code. With per-length counts c_L, canonical first codes fc_L
+// (fc_1 = 0, fc_{L+1} = (fc_L + c_L) << 1) and the eight limits
+// K_L = (fc_L + c_L) << (8 - L) = sum_{j <= L} c_j << (8 - j), the first L
+// bits of the peek p are a code of length L iff p < K_L. K_L never
+// decreases, so the lengths that miss are 1..m and the code's length is
+// m + 1 (9: no code of <= 8 bits); its index among the codes of that length
+// is (p - K_m) >> (8 - len), because K_m is a multiple of 2^(9 - len).
+// Native's walk would stop at the same length: it tests the same
+// inequalities, one bit at a time. Its code 6 (a hit at length L with
+// c_L = 0) cannot happen: code_L < fc_L means code_{L-1} < fc_{L-1} +
+// c_{L-1}, a hit one length earlier, where the walk already stopped.
+// Error codes are native's: with r = enc_bits - bit payload bits left, the
+// walk reads min(len, 8) bits, so min(len, 8) > r is code 5, else len = 9 is
+// code 7. Bits past enc_bits enter the peek but never decide: if no length
+// <= r hits, the code is 5 whatever follows.
+//
+// A CTA is one warp and decodes 32 blocks, whose working set (DecodeWarp)
+// is in shared memory. The parallel stages run on the whole warp or on
+// groups of kDecodeLanes = 8 lanes, one block at a time: staging (coalesced
+// word loads, issued together) and, in the kernels, the stores or the
+// transform. The stages that are a serial chain within a block (the
+// tree-group headers, whose positions depend on the counts before them,
+// and the codes, each starting where the one before ends) run one block per
+// lane, so the warp follows 32 chains side by side. The staging buffer and
+// the symbol tables are sized for what a stream typically needs, not for
+// 32 worst-case chunks, so that more warps fit an SM: blocks whose chunks
+// or tables do not fit wait for a later pass of the same warp. The
+// coefficients are stored with their words XOR-swizzled, so lanes in step
+// touch distinct banks. Whatever is indexed by data lives in shared memory;
+// registers are indexed by constants only.
 
-__device__ __forceinline__ uint32_t lane_word(const uint32_t* cw, int i) {
-  return i < kLaneWords ? cw[i] : 0u;  // bytes past the lane read as 0
+constexpr int kDecodeLanes = 8;
+// K2's and K6's CTA: one warp, one block per lane.
+constexpr int kDecodeBlocks = 32;
+// A chunk staged on its own takes 72 words: at most 65 hold its <= 255
+// bytes (3 more when it starts off a word boundary).
+constexpr int kStageWords = 72;
+// The staging buffer: 16 chunks staged on their own, or any run of back to
+// back chunks up to 4,608 bytes (a 4032x3008 noise frame at q50 averages
+// 48 bytes a chunk).
+constexpr int kBufWords = 16 * kStageWords;
+// A tree section that passes native's size check holds at most 181 symbols:
+// it is <= 255 bytes, and a group of c symbols takes 1 + ceil(11 c / 8)
+// bytes, so five groups of 32 (225 bytes) and one of 21 (30 bytes) are the
+// most. The warp's tables share a pool of 2,048 (64 a block on average).
+constexpr int kMaxTreeSymbols = 181;
+constexpr int kSymbolPool = 2048;
+static_assert(kSymbolPool >= kMaxTreeSymbols, "one tree fits the pool");
+
+// One warp's working set in shared memory (13,840 bytes).
+struct alignas(16) DecodeWarp {
+  // staged chunks; the reads of a field or window may run a word past them
+  uint32_t buf[kBufWords + 4];
+  uint32_t coef[32 * kDecodeBlocks];    // coefficient pairs, coef_word()
+  int32_t tab[8 * kDecodeBlocks];       // m: K_m | (first row of m + 1) << 16
+  union {
+    int16_t sym[kSymbolPool];           // canonical symbol tables
+    float x[kDecodeBlocks / kDecodeLanes][64];  // K2: one block a group
+  };
+};
+
+// The word of block b's coefficients 2w and 2w + 1 (row-major).
+__device__ __forceinline__ int coef_word(int b, int w) {
+  return w * kDecodeBlocks + (b ^ w);
 }
 
-__device__ __forceinline__ int byte_at(const uint32_t* cw, int j) {
-  return int(lane_word(cw, j >> 2) >> (8 * (j & 3))) & 0xFF;
+// Coefficients 8 * slice .. 8 * slice + 7 of block b as one uint4.
+__device__ __forceinline__ uint4 coef_row(const DecodeWarp& d, int b,
+                                          int slice) {
+  const int w = 4 * slice;
+  return make_uint4(d.coef[coef_word(b, w)], d.coef[coef_word(b, w + 1)],
+                    d.coef[coef_word(b, w + 2)], d.coef[coef_word(b, w + 3)]);
 }
 
-__device__ __forceinline__ uint32_t bits_at(const uint32_t* cw, int bitpos,
-                                            int nbits) {
-  const int i = bitpos >> 5;
-  const uint64_t v = lane_word(cw, i) | (uint64_t(lane_word(cw, i + 1)) << 32);
-  return uint32_t(v >> (bitpos & 31)) & ((1u << nbits) - 1u);
+// zz[i]: the row-major position of message symbol i. Every thread of the CTA
+// calls this; the caller synchronises the CTA after it.
+__device__ __forceinline__ void load_zigzag(uint8_t* zz) {
+  for (int i = threadIdx.x; i < 64; i += blockDim.x) zz[i] = kZigzag[i];
 }
 
-// Decode one chunk (bytes zero past `size`) into row-major coefficients.
-// Returns 0 or entropy.cpp decode_block's error code; a bad block's
-// coefficients are unspecified here (callers zero or discard them).
-__device__ inline int decode_block(const uint32_t* cw, int size,
-                                   int16_t* coef) {
+__device__ __forceinline__ int staged_byte(const uint32_t* w, int j) {
+  return int(w[j >> 2] >> (8 * (j & 3))) & 0xFF;
+}
+
+// The 32 staged bits from bit q on.
+__device__ __forceinline__ uint32_t staged_bits(const uint32_t* w, int q) {
+  return __funnelshift_r(w[q >> 5], w[(q >> 5) + 1], q & 31);
+}
+
+// The chunk's byte offset in the first staged word.
+__device__ __forceinline__ int chunk_shift(const uint8_t* content,
+                                           int64_t off) {
+  return int((off + int64_t(reinterpret_cast<uintptr_t>(content) & 3)) & 3);
+}
+
+// Stage bytes [off, off + nbytes) of content[0, content_len) into
+// words[0, limit) as the aligned 32-bit words that hold them: word m is
+// read by lane `first` of `step` lanes (m = first, first + step, ...), kPer
+// loads a lane issued together; bytes outside the range or outside content
+// are zeroed. Only words that straddle content's ends take byte loads.
+template <int kPer>
+__device__ __forceinline__ void stage_range(uint32_t* words, int first,
+                                            int step, int limit,
+                                            const uint8_t* content,
+                                            int64_t content_len, int64_t off,
+                                            int nbytes) {
+  const int shift = chunk_shift(content, off);
+  const int64_t q_first = off - shift;  // content position of word 0
+  const int nwords = (shift + nbytes + 3) >> 2;
+  // words [m_lo, m_hi) lie wholly inside content
+  const int m_lo = int(min(max(3 - q_first, int64_t(0)) >> 2, int64_t(limit)));
+  const int m_hi = int(min(max(content_len - q_first, int64_t(0)) >> 2,
+                           int64_t(nwords)));
+  for (int m0 = first; m0 < limit; m0 += kPer * step) {
+    uint32_t v[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int m = m0 + k * step;
+      v[k] = m >= m_lo && m < m_hi ? *reinterpret_cast<const uint32_t*>(
+                                         content + q_first + 4 * m)
+                                   : 0u;
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int m = m0 + k * step;
+      if (m >= limit) break;
+      if (m < nwords && (m < m_lo || m >= m_hi)) {  // across content's ends
+        for (int t = 0; t < 4; ++t) {
+          const int64_t q = q_first + 4 * m + t;
+          if (q >= 0 && q < content_len)
+            v[k] |= uint32_t(content[q]) << (8 * t);
+        }
+      }
+      const int j0 = 4 * m - shift;  // range byte of the word's byte 0
+      const int lo = min(max(-j0, 0), 4), hi = min(max(nbytes - j0, 0), 4);
+      const uint32_t keep =
+          hi > lo ? uint32_t((1ull << (8 * hi)) - (1ull << (8 * lo))) : 0u;
+      words[m] = v[k] & keep;
+    }
+  }
+}
+
+// Staged word i, bit-reversed, with the bits from bit `end` on zeroed (the
+// chunk ends there): bit 31 is stream bit 32 i.
+__device__ __forceinline__ uint32_t chunk_word_rev(const uint32_t* w, int i,
+                                                   int end) {
+  const int keep = min(max(end - 32 * i, 0), 32);
+  return __brev(w[i] & uint32_t((1ull << keep) - 1u));
+}
+
+// Lane: parse the tree section of the chunk of `size` bytes staged from
+// byte `base` of buf. Returns 0 or native decode_block's error code 1..4;
+// cnt8 gets the count of length L in byte L - 1.
+__device__ __forceinline__ int parse_tree(const uint32_t* w, int base,
+                                          int size,
+                                          unsigned long long& cnt8) {
+  cnt8 = 0;
   if (size < 3) return 1;
-  const int enc_bits = byte_at(cw, 0) | (byte_at(cw, 1) << 8);
-  const int tree_size = byte_at(cw, 2);
+  const int enc_bits = staged_byte(w, base) | (staged_byte(w, base + 1) << 8);
+  const int tree_size = staged_byte(w, base + 2);
   if (3 + tree_size + (enc_bits + 7) / 8 > size) return 2;
-
-  // tree groups -> per-length counts and symbols in stored order
-  int counts[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
-  int16_t symtab[9][64];
   int pos = 3;
   while (pos - 3 < tree_size) {
-    const int info = byte_at(cw, pos++);
-    const int len = (info >> 5) + 1;
-    const int cnt = (info & 31) + 1;
-    for (int k = 0; k < cnt; ++k) {
-      if (counts[len] >= 64) return 3;
-      const int v = int(bits_at(cw, pos * 8 + 11 * k, 11));
-      symtab[len][counts[len]++] = int16_t(v >= 1024 ? v - 2048 : v);
-    }
-    pos += (cnt * 11 + 7) / 8;
+    const int info = staged_byte(w, base + pos);
+    const int sh = 8 * (info >> 5), cnt = (info & 31) + 1;
+    // native stops at this group's symbol number 65 of the length
+    if (int(cnt8 >> sh & 0xFF) + cnt > 64) return 3;
+    cnt8 += (unsigned long long)cnt << sh;
+    pos += 1 + (cnt * 11 + 7) / 8;
   }
-  if (pos - 3 != tree_size) return 4;
-
-  // canonical decode (puff.c-style first/count walk)
-  for (int i = 0; i < 64; ++i) coef[i] = 0;
-  const int pbit = pos * 8;
-  int bit = 0, out_i = 0;
-  while (bit < enc_bits && out_i < 64) {
-    int code = 0, first = 0;
-    int16_t sym = 0;
-    bool found = false;
-    for (int len = 1; len <= 8; ++len) {
-      if (bit >= enc_bits) return 5;
-      code |= int(bits_at(cw, pbit + bit, 1));
-      ++bit;
-      const int c = counts[len];
-      if (code < first + c) {
-        if (c == 0) return 6;
-        sym = symtab[len][code - first];
-        found = true;
-        break;
-      }
-      first = (first + c) << 1;
-      code <<= 1;
-    }
-    if (!found) return 7;
-    coef[kZigzag[out_i++]] = sym;
-  }
-  if (bit != enc_bits) return 8;
-  return 0;
+  return pos - 3 != tree_size ? 4 : 0;
 }
 
-// Chunk b of the stream (`size` bytes at `off` in content[0..content_len))
-// -> row-major coefficients; returns decode_block's code. The chunk is copied
-// into a zero-padded local lane; bytes outside content read as 0, so
-// inconsistent offsets cannot reach past the buffer.
-__device__ __forceinline__ int decode_chunk(const uint8_t* content,
-                                            int64_t content_len, int size,
-                                            int64_t off, int16_t* coef) {
-  uint32_t cw[kLaneWords];
-  for (int i = 0; i < kLaneWords; ++i) cw[i] = 0;
-  for (int j = 0; j < min(size, 4 * kLaneWords); ++j) {
-    const int64_t at = off + j;
-    if (at >= 0 && at < content_len)
-      cw[j >> 2] |= uint32_t(content[at]) << (8 * (j & 3));
+// Lane `me`: decode the valid tree section and the payload of the chunk
+// staged from byte `base` of buf into block me's coefficients (zeroed
+// before; a bad block's values are partial, the caller stores zeros for
+// it), with its symbol table at sym[pool]. Returns 0 or native
+// decode_block's error code 5, 7 or 8.
+__device__ __forceinline__ int decode_payload(DecodeWarp& d,
+                                              const uint8_t* zz, int me,
+                                              int base, int size,
+                                              unsigned long long cnt8,
+                                              int pool) {
+  const uint32_t* w = d.buf;
+  const int enc_bits = staged_byte(w, base) | (staged_byte(w, base + 1) << 8);
+  const int tree_size = staged_byte(w, base + 2);
+  // limits K_L of lengths L = i + 1 and the table's first row per length;
+  // a valid tree has <= 181 symbols, so the bytes of run never carry
+  int lim[8];
+  unsigned long long run = 0;
+  {
+    int k_acc = 0, c_acc = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = int(cnt8 >> (8 * i) & 0xFF);
+      d.tab[i * kDecodeBlocks + me] = k_acc | ((pool + c_acc) << 16);
+      run |= (unsigned long long)c_acc << (8 * i);
+      c_acc += c;
+      k_acc += c << (7 - i);
+      lim[i] = k_acc;
+    }
   }
-  return decode_block(cw, size, coef);
+  int pos = 3;
+  while (pos - 3 < tree_size) {  // the symbols, in canonical order
+    const int info = staged_byte(w, base + pos);
+    const int sh = 8 * (info >> 5), cnt = (info & 31) + 1;
+    int16_t* row = d.sym + pool + int(run >> sh & 0xFF);
+    const int q0 = 8 * (base + pos + 1);
+    for (int k = 0; k < cnt; ++k) {
+      const int v = int(staged_bits(w, q0 + 11 * k) & 0x7FFu);
+      row[k] = int16_t(v >= 1024 ? v - 2048 : v);
+    }
+    run += (unsigned long long)cnt << sh;
+    pos += 1 + (cnt * 11 + 7) / 8;
+  }
+
+  // the stream, MSB-first, in a window of three reversed words; the symbol
+  // of each code is stored one code later, so its table reads overlap the
+  // next code's compares
+  const int end = 8 * (base + min(size, 4 * kLaneWords));
+  const int p0 = 8 * (base + pos);
+  int wi = p0 >> 5, at = p0 & 31;
+  uint32_t w0 = chunk_word_rev(w, wi, end);
+  uint32_t w1 = chunk_word_rev(w, wi + 1, end);
+  uint32_t w2 = chunk_word_rev(w, min(wi + 2, kBufWords - 1), end);
+  int16_t* coef = reinterpret_cast<int16_t*>(d.coef);
+  int bit = 0, out_i = 0, held = -1;
+  int16_t held_val = 0;
+  while (bit < enc_bits && out_i < 64) {
+    const int peek = int(__funnelshift_l(w1, w0, at) >> 24);
+    // m = the number of lengths that miss, by a binary search of lim
+    const int b2 = peek >= lim[3];
+    const int b1 = peek >= (b2 ? lim[5] : lim[1]);
+    const int b0 =
+        peek >= (b2 ? (b1 ? lim[6] : lim[4]) : (b1 ? lim[2] : lim[0]));
+    const int m = 4 * b2 + 2 * b1 + b0 + (peek >= lim[7]);
+    const int len = m + 1;
+    if (min(len, 8) > enc_bits - bit) return 5;
+    if (len == 9) return 7;
+    const int t = d.tab[m * kDecodeBlocks + me];
+    bit += len;
+    at += len;
+    if (at >= 32) {  // one code crosses at most one word boundary
+      at -= 32;
+      w0 = w1;
+      w1 = w2;
+      ++wi;
+      w2 = chunk_word_rev(w, min(wi + 2, kBufWords - 1), end);
+    }
+    if (held >= 0) coef[held] = held_val;
+    const int p = zz[out_i++];
+    held = 2 * coef_word(me, p >> 1) + (p & 1);
+    held_val = d.sym[(t >> 16) + ((peek - (t & 0xFFFF)) >> (7 - m))];
+  }
+  if (held >= 0) coef[held] = held_val;
+  return bit != enc_bits ? 8 : 0;
+}
+
+// Inclusive sum over the warp's lanes 0..me.
+__device__ __forceinline__ int warp_scan(int v, int me) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(kWarpMask, v, o);
+    if (me >= o) v += u;
+  }
+  return v;
+}
+
+// Decode blocks b0 .. b0 + 31 (those < n) of the stream into d. Lane l
+// decodes block b0 + l; passes of the warp stage as many chunks as the
+// buffer holds and table as many trees as the pool holds, and repeat until
+// every block is done (one pass for a typical stream). Returns lane l's
+// block's code (0 or native's 1..8; code 1 past n). Every lane of the warp
+// calls this.
+__device__ __forceinline__ int decode_warp(DecodeWarp& d, const uint8_t* zz,
+                                           const uint8_t* content,
+                                           int64_t content_len,
+                                           const int32_t* sizes,
+                                           const int64_t* offsets, int64_t b0,
+                                           int64_t n) {
+  static_assert(kDecodeLanes == 8 && kDecodeBlocks == 32,
+                "a warp of 4 groups of 8 lanes");
+  const int me = threadIdx.x & 31;
+  const bool mine = b0 + me < n;
+  const int size = mine ? sizes[b0 + me] : 0;
+  const int64_t off = mine ? offsets[b0 + me] : 0;
+  for (int i = me; i < 32 * kDecodeBlocks / 4; i += kDecodeBlocks)
+    reinterpret_cast<uint4*>(d.coef)[i] = make_uint4(0, 0, 0, 0);
+
+  // a valid stream holds the warp's chunks back to back: stage runs of them
+  // as one range; otherwise each chunk on its own, a group of 8 lanes a chunk
+  const int last = __popc(__ballot_sync(kWarpMask, mine)) - 1;
+  const int64_t next = __shfl_down_sync(kWarpMask, off, 1);
+  const bool linked =
+      size >= 0 && size <= 255 && (me >= last || next == off + size);
+  const bool in_order = __all_sync(kWarpMask, linked);
+  int e = 1;
+  bool pending = mine;
+  while (__any_sync(kWarpMask, pending)) {
+    const int first = __ffs(__ballot_sync(kWarpMask, pending)) - 1;
+    const int64_t off_first = __shfl_sync(kWarpMask, off, first);
+    bool staged;
+    int base;
+    if (in_order) {
+      const int shift = chunk_shift(content, off_first);
+      staged = pending && shift + (off + size - off_first) <= 4 * kBufWords;
+      const int top = 31 - __clz(__ballot_sync(kWarpMask, staged));
+      const int nbytes =
+          int(__shfl_sync(kWarpMask, off + size, top) - off_first);
+      stage_range<8>(d.buf, me, kDecodeBlocks, (shift + nbytes + 3) >> 2,
+                     content, content_len, off_first, nbytes);
+      base = shift + int(off - off_first);
+    } else {
+      staged = pending && me < first + kBufWords / kStageWords;
+      const int lane = me % kDecodeLanes, group = me / kDecodeLanes;
+#pragma unroll 1
+      for (int r = 0; r < kBufWords / kStageWords / 4; ++r) {
+        const int slot = 4 * r + group, blk = first + slot;
+        const int64_t blk_off = __shfl_sync(kWarpMask, off, blk & 31);
+        const int blk_size = __shfl_sync(kWarpMask, size, blk & 31);
+        stage_range<kStageWords / kDecodeLanes>(
+            d.buf + slot * kStageWords, lane, kDecodeLanes, kStageWords,
+            content, content_len, blk_off,
+            blk < 32 ? max(0, min(blk_size, 4 * kLaneWords)) : 0);
+      }
+      base = 4 * kStageWords * (me - first) + chunk_shift(content, off);
+    }
+    __syncwarp();
+    unsigned long long cnt8 = 0;
+    if (staged) e = parse_tree(d.buf, base, size, cnt8);
+    bool waiting = staged && e == 0;
+    int nsym = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) nsym += int(cnt8 >> (8 * i) & 0xFF);
+    while (__any_sync(kWarpMask, waiting)) {  // trees that fit the pool
+      const int upto = warp_scan(waiting ? nsym : 0, me);
+      const bool go = waiting && upto <= kSymbolPool;
+      if (go)
+        e = decode_payload(d, zz, me, base, size, cnt8, upto - nsym);
+      waiting = waiting && !go;
+      __syncwarp();
+    }
+    pending = pending && !staged;
+  }
+  return e;
 }
 
 }  // namespace myyuv

@@ -16,7 +16,8 @@
 // the chains' latency; each row is read as 8 aligned 16-byte loads; the DCT
 // matrix and tables sit in shared memory; pixels go straight into the plane
 // layout, so nothing follows the kernel. The stage is block_dct.cuh's
-// dequantize_idct_block, which K2 runs too, so K4(K6(s)) equals K2(s).
+// dequantize_idct_block, whose chains K2's dequantize_idct_group computes
+// too, so K4(K6(s)) equals K2(s).
 
 #include "block_dct.cuh"
 

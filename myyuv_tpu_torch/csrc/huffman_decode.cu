@@ -1,5 +1,5 @@
-// K6: canonical Huffman decode of N chunks of the on-disk stream, one thread
-// per block, into row-major int16 coefficient rows and per-block codes.
+// K6: canonical Huffman decode of N chunks of the on-disk stream into
+// row-major int16 coefficient rows and per-block codes, 32 blocks per warp.
 //
 // Replaces the TPU kernels myyuv_tpu/entropy/pallas_decode8.py::_tree_kernel8
 // + _payload_kernel8 (launched by _decode8_raw; entry points decode_words8,
@@ -8,40 +8,55 @@
 // decode_lanes / decode_words). With K4 after it, it is also the port's
 // two-kernel decompress K2' (pallas_decode8.py::_tree_kernel8 +
 // _payload_idct_kernel8). The port keeps what they compute, not their
-// layout: one kernel instead of two, the tree tables in the thread's local
-// memory instead of HBM, no packed-8 windows, no continuation tiers.
+// layout: one kernel instead of two, the tree tables in shared memory
+// instead of HBM, no packed-8 windows, no continuation tiers, no one-hot
+// symbol scan. It returns native decode_block's codes 1..8 (code 6 cannot
+// occur; block_huffman.cuh says why) and writes a bad block's coefficients
+// as 0.
 //
-// What bounds it on the H100: per-thread latency. Each thread copies its
-// chunk (3..255 bytes at a device-computed offset) into a local lane, parses
-// the tree into a [9][64] symbol table (~1.2 KB of local memory) and walks
-// the canonical code one bit at a time; memory traffic by count is the
-// stream plus 3.4 MB of sizes and offsets in, 36.4 MB of coefficients and
-// 1.1 MB of codes out for a 4032x3008 frame, >= 12 us at 3.35 TB/s.
-// What the design does about it: 284k independent threads per 4K frame keep
-// the schedulers fed while others wait; chunk bytes are read once from HBM;
-// each row is written as 8 aligned 16-byte stores. The stage is
-// block_huffman.cuh's decode_chunk, which K2 runs too, so K6 returns K2's
-// error code on every chunk. A bad block's coefficients are written as 0.
+// What bounds it on the H100: latency of the per-block chains. Memory
+// traffic by count is the stream plus 3.4 MB of sizes and offsets in,
+// 36.4 MB of coefficients and 1.1 MB of codes out for a 4032x3008 frame,
+// >= 12 us at 3.35 TB/s; each block runs a serial chain of up to 85
+// tree-group headers and up to 64 codes, each code starting where the one
+// before ends.
+// What the design does about it: block_huffman.cuh::decode_warp, which K2
+// runs too. The warp stages its 32 chunks into shared memory with coalesced
+// word loads (one range for a valid stream), then each lane follows one
+// block's chain: the tree into a table in a shared pool, and each code from
+// an 8-bit peek with a 3-compare search of the eight limits instead of a
+// walk of up to 8 one-bit steps. Groups of 8 lanes then store four blocks'
+// 128-byte rows a round, 16 bytes a lane. Nothing goes to local memory
+// (ptxas: 0-byte stack frame).
 
 #include "block_huffman.cuh"
 
 namespace myyuv {
 namespace {
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDecodeBlocks)
 huffman_decode_kernel(const uint8_t* __restrict__ content,
                       int64_t content_len, const int32_t* __restrict__ sizes,
                       const int64_t* __restrict__ offsets, int64_t n,
                       int16_t* __restrict__ coeffs,
                       int32_t* __restrict__ err) {
-  const int64_t b = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (b >= n) return;
-  __align__(16) int16_t coef[64];
-  const int e = decode_chunk(content, content_len, sizes[b], offsets[b], coef);
-  err[b] = e;
-  if (e != 0)
-    for (int i = 0; i < 64; ++i) coef[i] = 0;
-  store_coeffs(coef, coeffs + b * 64);
+  __shared__ uint8_t zz[64];
+  __shared__ DecodeWarp d;
+  load_zigzag(zz);
+  __syncthreads();
+  const int64_t b0 = int64_t(blockIdx.x) * kDecodeBlocks;
+  const int e = decode_warp(d, zz, content, content_len, sizes, offsets, b0,
+                            n);
+  const int me = threadIdx.x, lane = me % kDecodeLanes;
+  if (b0 + me < n) err[b0 + me] = e;
+#pragma unroll
+  for (int r = 0; r < kDecodeBlocks / 4; ++r) {  // four 128-byte rows a round
+    const int blk = 4 * r + me / kDecodeLanes;
+    const bool bad = __shfl_sync(kWarpMask, e, blk) != 0;
+    if (b0 + blk < n)
+      reinterpret_cast<uint4*>(coeffs + (b0 + blk) * 64)[lane] =
+          bad ? make_uint4(0, 0, 0, 0) : coef_row(d, blk, lane);
+  }
 }
 
 }  // namespace
@@ -56,8 +71,8 @@ extern "C" int myyuv_huffman_decode(const void* content, int64_t content_len,
                                     int64_t n, void* coeffs, void* err,
                                     void* stream) {
   if (n > 0) {
-    const int64_t grid = (n + myyuv::kThreads - 1) / myyuv::kThreads;
-    myyuv::huffman_decode_kernel<<<unsigned(grid), myyuv::kThreads, 0,
+    const int64_t grid = (n + myyuv::kDecodeBlocks - 1) / myyuv::kDecodeBlocks;
+    myyuv::huffman_decode_kernel<<<unsigned(grid), myyuv::kDecodeBlocks, 0,
                                    static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(content), content_len,
         static_cast<const int32_t*>(sizes),

@@ -1,25 +1,27 @@
-"""A/B timing of the encoder kernels K1 (``dct_encode``) and K5
-(``huffman_encode``) across source trees, on one CUDA card.
+"""A/B timing of the entropy kernels K1 (``dct_encode``), K5
+(``huffman_encode``), K2 (``decode_idct``) and K6 (``huffman_decode``)
+across source trees, on one CUDA card.
 
 Run from the repository root on a machine with a CUDA card::
 
-    python3 -m myyuv_tpu_torch.tools.encoder_ab [--other LABEL=DIR ...]
+    python3 -m myyuv_tpu_torch.tools.kernel_ab [--other LABEL=DIR ...]
 
-Builds K1 and K5 with ``kernels/build.py`` (all builds in parallel) from
-this checkout's ``csrc/`` (label ``this``) and from each ``DIR`` given by
-``--other`` (the ``myyuv_tpu_torch/csrc`` of another commit, unpacked for
-example with ``git archive <commit> myyuv_tpu_torch/csrc | tar -x -C
+Builds the four kernels with ``kernels/build.py`` (all builds in parallel)
+from this checkout's ``csrc/`` (label ``this``) and from each ``DIR`` given
+by ``--other`` (the ``myyuv_tpu_torch/csrc`` of another commit, unpacked
+for example with ``git archive <commit> myyuv_tpu_torch/csrc | tar -x -C
 build/parent``), and prints each build's ptxas registers, stack frame and
 spills. On two 4032x3008 q50 frames -- ``cli``, ``probe.smooth_picture``
 converted to IYUV as ``-to_yuv IYUV`` does, and ``noise``, uniform random
-planes -- it holds every build's lanes, sizes and err to the plain
-versions', then times every build's K1 and K5 with ``probe.cuda_ms``
-(chip_smoke's timer), calling the C entry points directly: 7 rounds, the
-builds in turns (forward, then backward order), one reading each. It
-prints the median per build, kernel and frame beside the card's name and
-power limit, and one JSON line. As a yardstick it also times
-``lanes.zero_()``, the write of the 256-byte lanes alone that both
-kernels' output contract costs.
+planes -- it holds every build's outputs to the plain versions' (the
+encoders' lanes, sizes and err; the decoders' coefficients or planes and
+err, on the plain encoder's stream of the frame), then times every build
+of each kernel with ``probe.cuda_ms`` (chip_smoke's timer), calling the C
+entry points directly: 7 rounds, the builds in turns (forward, then
+backward order), one reading each. It prints the median per build, kernel
+and frame beside the card's name and power limit, and one JSON line. As a
+yardstick it also times ``lanes.zero_()``, the write of the 256-byte lanes
+alone that both encoders' output contract costs.
 """
 
 from __future__ import annotations
@@ -35,15 +37,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from myyuv_tpu_torch.engine import pipeline
+from myyuv_tpu_torch.engine import device_stream, pipeline
+from myyuv_tpu_torch.entropy import decode, encode
 from myyuv_tpu_torch.entropy import device as edev
-from myyuv_tpu_torch.entropy import encode
 from myyuv_tpu_torch.kernels import build, probe, transform
 from myyuv_tpu_torch.kernels import device as kdev
 
 H, W = 3008, 4032
 REPS = 7
-KERNELS = ("dct_encode", "huffman_encode")
+KERNELS = ("dct_encode", "huffman_encode", "decode_idct", "huffman_decode")
 
 
 def ptxas_summary(log: str) -> str:
@@ -62,7 +64,7 @@ def main(argv=None) -> int:
                     help="csrc/ of another commit, under a label")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
-        print("encoder_ab: no CUDA device", file=sys.stderr)
+        print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -93,24 +95,41 @@ def main(argv=None) -> int:
         coeffs = transform.dct_quantize_blocks(*planes, qt, dct)
         want = encode.dct_encode_blocks_plain(*planes, qt, dct)
         check5 = edev.encode_lanes(coeffs)
+        content = device_stream.compact_chunks(want[0], want[1])
+        sizes = want[1]
+        offsets = torch.cumsum(sizes, 0, dtype=torch.int64) - sizes
         lanes = torch.empty((n, 256), dtype=torch.uint8, device=dev)
-        sizes = torch.empty(n, dtype=torch.int32, device=dev)
+        lsizes = torch.empty(n, dtype=torch.int32, device=dev)
         err = torch.empty(n, dtype=torch.int32, device=dev)
-        outs = (lanes.data_ptr(), sizes.data_ptr(), err.data_ptr(), stream)
+        rows = torch.empty((n, 64), dtype=torch.int16, device=dev)
+        y = torch.empty((H, W), dtype=torch.uint8, device=dev)
+        u = torch.empty((H // 2, W // 2), dtype=torch.uint8, device=dev)
+        v = torch.empty((H // 2, W // 2), dtype=torch.uint8, device=dev)
+        outs = (lanes.data_ptr(), lsizes.data_ptr(), err.data_ptr(), stream)
+        ins = (content.data_ptr(), content.numel(), sizes.data_ptr(),
+               offsets.data_ptr())
         calls = {
-            "dct_encode": (want, lambda f: f(
+            "dct_encode": ((lanes, lsizes, err), want, lambda f: f(
                 *(p.data_ptr() for p in planes), H, W, qt.data_ptr(),
                 dct.data_ptr(), *outs)),
-            "huffman_encode": (check5, lambda f: f(
+            "huffman_encode": ((lanes, lsizes, err), check5, lambda f: f(
                 coeffs.data_ptr(), n, *outs)),
+            "decode_idct": ((y, u, v, err), decode.decode_idct_blocks_plain(
+                content, sizes, offsets, qt, dct, H, W), lambda f: f(
+                *ins, H, W, qt.data_ptr(), dct.data_ptr(), y.data_ptr(),
+                u.data_ptr(), v.data_ptr(), err.data_ptr(), stream)),
+            "huffman_decode": ((rows, err), decode.decode_blocks_plain(
+                content, sizes, offsets), lambda f: f(
+                *ins, n, rows.data_ptr(), err.data_ptr(), stream)),
         }
-        for name, (plain, call) in calls.items():
+        for name, (got, plain, call) in calls.items():
             for label in trees:
-                lanes.fill_(0xAB)
+                for t in got:
+                    t.fill_(0xAB if t.dtype == torch.uint8 else 77)
                 if call(fns[label][name]):
                     raise SystemExit(f"{label} {name}: launch failed")
                 torch.cuda.synchronize()
-                for g, p in zip((lanes, sizes, err), plain):
+                for g, p in zip(got, plain):
                     if not torch.equal(g, p):
                         raise SystemExit(f"{label} {name} differs from the "
                                          f"plain version on {frame}")
@@ -124,8 +143,9 @@ def main(argv=None) -> int:
                 results[f"{name} {frame} {label}"] = statistics.median(
                     times[label])
         results[f"lanes.zero_ {frame} -"] = probe.cuda_ms(lanes.zero_, REPS)
-        print(f"[times] {card} | {W}x{H} q50 {frame} frame, median of "
-              f"{REPS}, CUDA events: " + ", ".join(
+        print(f"[times] {card} | {W}x{H} q50 {frame} frame "
+              f"({content.numel()} stream bytes), median of {REPS}, CUDA "
+              f"events: " + ", ".join(
                   f"{k.split()[0]} {k.split()[2]} {v:.4f} ms"
                   for k, v in results.items() if k.split()[1] == frame),
               flush=True)

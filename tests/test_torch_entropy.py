@@ -22,6 +22,7 @@ from myyuv_tpu.runtime.errors import BitstreamError
 from myyuv_tpu_torch.engine import device_stream, pipeline
 from myyuv_tpu_torch.entropy import device as edev
 from myyuv_tpu_torch.entropy import encode
+from myyuv_tpu_torch.kernels import probe
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -57,13 +58,21 @@ def _decode(sizes, content):
     return coeffs.numpy(), err.numpy()
 
 
+def _native_decode(chunk: np.ndarray):
+    """The host decoder on one chunk: (0, its coefficients) or (its error
+    code, None). The chunk lies in a zero-padded buffer, so a malformed tree
+    that makes native read past the chunk reads inside it."""
+    try:
+        out = native.decode_blocks(np.array([chunk.size], np.uint8),
+                                   np.pad(chunk, (0, 256)))
+    except BitstreamError as e:
+        return int(re.search(r"code (\d+)", str(e)).group(1)), None
+    return 0, out[0]
+
+
 def _native_code(chunk: np.ndarray) -> int:
     """The host decoder's verdict on one chunk: 0 or its error code."""
-    try:
-        native.decode_blocks(np.array([chunk.size], np.uint8), chunk)
-    except BitstreamError as e:
-        return int(re.search(r"code (\d+)", str(e)).group(1))
-    return 0
+    return _native_decode(chunk)[0]
 
 
 def test_plain_encode_matches_native_bytes(rng):
@@ -240,3 +249,27 @@ def test_chunks_past_the_content_read_as_zero(rng):
     assert err[3] == _native_code(seen3)
     assert err[4] == _native_code(np.zeros(sizes[4], np.uint8))
     assert not err[:3].any() and not err[5:].any()
+
+
+@pytest.mark.parametrize("family", probe.DECODER_FAMILIES)
+def test_plain_decoder_matches_native_on_decoder_families(family):
+    """Each chunk of a ``probe.decoder_families`` family, as the decoders
+    see it (bytes outside the content read as 0), gets native
+    ``decode_block``'s error code from the plain decoder, and, when valid,
+    native's coefficients; a bad block's are 0. An error family's chunks
+    all carry its code."""
+    content, sizes, offsets = probe.decoder_families(
+        np.random.default_rng(7))[family]
+    sizes_t = torch.from_numpy(sizes)
+    lanes = edev.gather_lanes(torch.from_numpy(content), sizes_t,
+                              torch.from_numpy(offsets))
+    coeffs, err = edev.decode_lanes(lanes, sizes_t)
+    for b, size in enumerate(sizes):
+        code, want = _native_decode(lanes[b, :size].numpy())
+        assert int(err[b]) == code, b
+        if code:
+            assert not coeffs[b].any(), b
+        else:
+            np.testing.assert_array_equal(coeffs[b].numpy(), want)
+    if family.startswith("err"):
+        assert set(err.tolist()) == {int(family[3])}

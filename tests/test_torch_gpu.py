@@ -12,7 +12,7 @@ import torch
 from myyuv_tpu_torch.engine import device_stream, pipeline
 from myyuv_tpu_torch.entropy import decode, encode
 from myyuv_tpu_torch.entropy import device as edev
-from myyuv_tpu_torch.kernels import probe
+from myyuv_tpu_torch.kernels import probe, transform
 
 pytestmark = pytest.mark.gpu
 
@@ -119,7 +119,6 @@ def _kind_planes(rng, kind, h, w, cuda):
 def test_staged_kernels_match_plain(rng, cuda, shape, q):
     """K3, K5, K6 and K4 against their plain versions on five content
     kinds, and each staged pair against the fused kernel it splits."""
-    from myyuv_tpu_torch.kernels import transform
     h, w = shape
     dct, qt = pipeline.codec_params([q] * 3, cuda)
     for kind in probe.KINDS:
@@ -216,6 +215,68 @@ def test_encoder_k1_reads_planes_off_8_byte_boundaries(rng, cuda):
         assert torch.equal(g, p)
 
 
+def _decoder_frame(sizes, offsets):
+    """A 16 x 16m frame's worth of blocks: the family's chunks, then empty
+    ones (code 1)."""
+    n = sizes.numel()
+    h, w = 16, 16 * -(-n // 6)                 # 6 blocks per 16 x 16
+    pad = transform.frame_blocks(h, w) - n
+    return (torch.cat([sizes, sizes.new_zeros(pad)]),
+            torch.cat([offsets, offsets.new_zeros(pad)]), h, w)
+
+
+@pytest.mark.parametrize("family", probe.DECODER_FAMILIES)
+def test_decoder_families_match_plain(rng, cuda, family):
+    """K6 and K2 on each family of ``probe.decoder_families``, with garbage
+    between the chunks and packed back to back (the decoders stage a warp's
+    chunks one way or the other): coefficients, pixels and err identical to
+    the plain versions, K6's codes equal to K2's, and a bad block's
+    coefficients 0."""
+    stream = probe.decoder_families(rng)[family]
+    dct, qt = pipeline.codec_params([50] * 3, cuda)
+    for arrays in (stream, probe.back_to_back(*stream)):
+        content, sizes, offsets = (torch.from_numpy(a).to(cuda)
+                                   for a in arrays)
+        got = decode.decode_blocks(content, sizes, offsets)
+        for g, p in zip(got, decode.decode_blocks_plain(content, sizes,
+                                                        offsets)):
+            assert g.is_cuda and torch.equal(g, p)
+        assert not got[0][got[1] != 0].any()
+        sizes2, offsets2, h, w = _decoder_frame(sizes, offsets)
+        k2 = decode.decode_idct_blocks(content, sizes2, offsets2, qt, dct,
+                                       h, w)
+        for g, p in zip(k2, decode.decode_idct_blocks_plain(
+                content, sizes2, offsets2, qt, dct, h, w)):
+            assert g.is_cuda and torch.equal(g, p)
+        assert torch.equal(k2[3][:sizes.numel()], got[1])
+
+
+@pytest.mark.parametrize("start", [1, 2, 3])
+def test_decoder_reads_content_off_word_boundaries(rng, cuda, start):
+    """The decoders stage chunks with word loads from the word boundary
+    below them; content that starts off a 4-byte boundary takes the same
+    paths with every chunk shifted."""
+    fams = probe.decoder_families(rng)
+    for family in ("word_crossing", "offsets_outside", "chunk_255"):
+        c, s, o = (fams[family] if family == "offsets_outside"
+                   else probe.back_to_back(*fams[family]))
+        buf = torch.zeros(c.size + 8, dtype=torch.uint8, device=cuda)
+        content = buf[start:start + c.size]
+        content.copy_(torch.from_numpy(c))
+        sizes, offsets = torch.from_numpy(s).to(cuda), torch.from_numpy(
+            o).to(cuda)
+        for g, p in zip(decode.decode_blocks(content, sizes, offsets),
+                        decode.decode_blocks_plain(content, sizes, offsets)):
+            assert torch.equal(g, p), family
+        sizes2, offsets2, h, w = _decoder_frame(sizes, offsets)
+        dct, qt = pipeline.codec_params([90] * 3, cuda)
+        for g, p in zip(decode.decode_idct_blocks(content, sizes2, offsets2,
+                                                  qt, dct, h, w),
+                        decode.decode_idct_blocks_plain(
+                            content, sizes2, offsets2, qt, dct, h, w)):
+            assert torch.equal(g, p), family
+
+
 def test_k6_codes_match_k2_on_corrupt_chunks(rng, cuda):
     h, w = 32, 64
     planes = [torch.from_numpy(p).to(cuda) for p in _frame(rng, h, w)]
@@ -269,7 +330,6 @@ def test_staged_route_and_batch_equal_fused_on_card(rng, cuda):
     assert torch.equal(py, ry) and torch.equal(pu, ru)
     assert torch.equal(pv, rv) and int(m["symbol_hist"].sum()) == b * (
         (h // 8) * (w // 8) + 2 * (h // 16) * (w // 16)) * 64
-    from myyuv_tpu_torch.kernels import transform
     coeffs = transform.dct_quantize_blocks_plain(
         *[p.view(-1, p.shape[-1]) for p in t], qt, dct)
     sym = coeffs.cpu().numpy().astype(np.int32).ravel() + 1024
