@@ -11,8 +11,9 @@ failure ending the run with a non-zero exit code:
 
 1. environment: Python, torch, CUDA and nvcc versions, the card;
 2. build of the six kernels, timed, with ptxas's registers, stack frame and
-   spills per kernel; the lane-group encoders K1 and K5 and decoders K2 and
-   K6 must use no local memory (0-byte stack frame, no spills);
+   spills per kernel; all six (the lane-group encoders K1 and K5, the warp
+   decoders K2 and K6, the group transforms K3 and K4) must use no local
+   memory (0-byte stack frame, no spills);
 3. on ten 4032x3008 frames (five content kinds: noise, gradient, flat,
    impulse, banded; q50 and q90; the contraction-probe blocks in every
    frame): K1 (csrc/dct_encode.cu), K3 (dct_quantize.cu) and K5
@@ -43,12 +44,17 @@ failure ending the run with a non-zero exit code:
    planes equal to the plain versions' and the symbol histogram to numpy's
    ``bincount`` of the plain coefficients;
 8. every kernel was launched by the path that drives it;
-9. times with CUDA events (median of 7): the six kernels against their
-   plain versions on the CLI frame at q50, and the six kernels on phase 3's
-   noise frame at q50 (the entropy kernels' slowest content); staged against
-   fused compress and decompress and end-to-end
-   ``compress_dct``/``decompress_dct`` on the host clock; the 8 x 1080p
-   ``roundtrip_batch`` and ``roundtrip_step``.
+9. times with CUDA events (median of 7; ``probe.cuda_ms``: back-to-back
+   calls queued behind a busy card, so the wrappers' host work is left
+   out): the six kernels against their plain versions on the CLI frame at
+   q50, and the six kernels on phase 3's noise frame at q50 (the entropy
+   kernels' slowest content); K3 and K4 also with the one-call timer of
+   earlier runs (``probe.host_inclusive_ms``), which the plain versions of
+   K1, K2, K5 and K6 take too (the plain decoder synchronises, and the
+   plain encoder queues thousands of small launches), labelled
+   host-inclusive; staged against fused compress and decompress and
+   end-to-end ``compress_dct``/``decompress_dct`` on the host clock; the
+   8 x 1080p ``roundtrip_batch`` and ``roundtrip_step``.
 
 It prints a JSON line with one entry per kernel (its launches on the path
 that drives it, max abs error against its plain version, times on the CLI
@@ -188,8 +194,7 @@ def main() -> int:
               + (f"{regs.group(1)} registers, {stack.group(1)} B stack, "
                  f"{stack.group(2)}/{stack.group(3)} B spill st/ld"
                  if regs and stack else "no report (library cached)"))
-        if name in ("dct_encode", "huffman_encode", "decode_idct",
-                    "huffman_decode") and stack:
+        if stack:
             check(stack.groups() == ("0", "0", "0"),
                   f"{name} uses local memory: {stack.group(0)}")
 
@@ -499,43 +504,60 @@ def main() -> int:
     npx = H4K * W4K * 3 // 2
     coeffs = transform.dct_quantize_blocks(*planes, qt, dct)
     tables = qt.numel() * 4 + dct.numel() * 4
+
+    def queued(fn, reps):  # K3's and K4's plain versions: one call a reading
+        return probe.cuda_ms(fn, reps, calls=1)
+
+    # kernel, plain version, the plain version's timer, bound
     runs = {
         "dct_encode": (
             lambda: encode.dct_encode_blocks(*planes, qt, dct),
             lambda: encode.dct_encode_blocks_plain(*planes, qt, dct),
+            probe.host_inclusive_ms,
             bound_ms(npx + tables + stream.numel() + n * 8, n * DCT_FLOP)),
         "decode_idct": (
             lambda: decode.decode_idct_blocks(stream, sizes, offsets, qt,
                                               dct, H4K, W4K),
             lambda: decode.decode_idct_blocks_plain(stream, sizes, offsets,
                                                     qt, dct, H4K, W4K),
+            probe.host_inclusive_ms,
             bound_ms(stream.numel() + n * 12 + tables + npx + n * 4,
                      n * DCT_FLOP)),
         "dct_quantize": (
             lambda: transform.dct_quantize_blocks(*planes, qt, dct),
             lambda: transform.dct_quantize_blocks_plain(*planes, qt, dct),
-            bound_ms(npx + tables + n * 128, n * DCT_FLOP)),
+            queued, bound_ms(npx + tables + n * 128, n * DCT_FLOP)),
         "dequantize_idct": (
             lambda: transform.dequantize_idct_blocks(coeffs, qt, dct, H4K,
                                                      W4K),
             lambda: transform.dequantize_idct_blocks_plain(coeffs, qt, dct,
                                                            H4K, W4K),
-            bound_ms(n * 128 + tables + npx, n * DCT_FLOP)),
+            queued, bound_ms(n * 128 + tables + npx, n * DCT_FLOP)),
         "huffman_encode": (
             lambda: encode.encode_blocks(coeffs),
             lambda: edev.encode_lanes(coeffs),
+            probe.host_inclusive_ms,
             bound_ms(n * 128 + stream.numel() + n * 8)),
         "huffman_decode": (
             lambda: decode.decode_blocks(stream, sizes, offsets),
             lambda: decode.decode_blocks_plain(stream, sizes, offsets),
+            probe.host_inclusive_ms,
             bound_ms(stream.numel() + n * 12 + n * (128 + 4))),
     }
-    times = {name: (probe.cuda_ms(k, REPS), probe.cuda_ms(p, REPS), b)
-             for name, (k, p, b) in runs.items()}
+    one_call = {name: probe.host_inclusive_ms(runs[name][0], REPS)
+                for name in ("dct_quantize", "dequantize_idct")}
+    print(f"[9 times] {card} | {W4K}x{H4K} q50, median of {REPS}, the "
+          f"one-call timer of earlier runs (host-inclusive): " + ", ".join(
+              f"{name} {t:.4f} ms" for name, t in one_call.items()),
+          flush=True)
+    times = {name: (probe.cuda_ms(k, REPS), timer(p, REPS), b)
+             for name, (k, p, timer, b) in runs.items()}
     print(f"[9 times] {card} | {W4K}x{H4K} q50, median of {REPS}, CUDA "
-          f"events: " + ", ".join(
-              f"{name} {t:.4f} ms (plain {p:.4f}, bound {b[0]:.4f} by "
-              f"{b[1]})" for name, (t, p, b) in times.items()), flush=True)
+          f"events around calls queued behind a busy card: " + ", ".join(
+              f"{name} {t:.4f} ms (plain {p:.4f}"
+              f"{'' if runs[name][2] is queued else ' host-inclusive'}, "
+              f"bound {b[0]:.4f} by {b[1]})"
+              for name, (t, p, b) in times.items()), flush=True)
     nplanes, nqt, ndct, ncoeffs = noise
     nstream, nsizes, noffsets = noise_stream
     noise_runs = {
@@ -554,8 +576,8 @@ def main() -> int:
                 for name, fn in noise_runs.items()}
     print(f"[9 times] {card} | phase 3's noise frame {W4K}x{H4K} q50 "
           f"({nstream.numel()} stream bytes), median of {REPS}, CUDA "
-          f"events: " + ", ".join(f"{name} {t:.4f} ms"
-                                  for name, t in noise_ms.items()),
+          f"events around calls queued behind a busy card: " + ", ".join(
+              f"{name} {t:.4f} ms" for name, t in noise_ms.items()),
           flush=True)
     del noise, nplanes, ncoeffs, noise_stream, nstream, noise_runs
 

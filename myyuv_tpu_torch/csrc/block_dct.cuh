@@ -1,10 +1,9 @@
-// Per-block transform stages: the DCT + quantize of K3 (dct_quantize.cu),
-// one 8x8 block per calling thread, and of K1 (dct_encode.cu), one block per
-// group of lanes; the dequantize + IDCT of K4 (dequantize_idct.cu), one
-// block per calling thread, and of K2 (decode_idct.cu), one block per group
-// of lanes. The thread and the group version of each compute every value
-// with the same chain, so the fused and the staged route's coefficients and
-// pixels cannot drift apart.
+// Group transform stages: one 8x8 block per group of 8 lanes, lane r
+// computing row r in registers. dct_quantize_group is the DCT + quantize of
+// K1 (dct_encode.cu) and K3 (dct_quantize.cu); dequantize_idct_group is the
+// dequantize + IDCT of K2 (decode_idct.cu) and K4 (dequantize_idct.cu). The
+// fused and the staged kernels call the same function, so the fused and the
+// staged route's coefficients and pixels cannot drift apart.
 //
 // Exactness (applyDCTBlock / restoreDCTBlock, DCT.cpp:232-277,325-361):
 // every product and sum of the chains is __fmul_rn/__fadd_rn, k ascending,
@@ -18,32 +17,9 @@
 
 namespace myyuv {
 
-// 8x8 pixels at px (row stride `stride`) -> quantized row-major coefficients
-// with DCT matrix c and table q (both row-major [64]).
-__device__ __forceinline__ void dct_quantize_block(const uint8_t* px,
-                                                   int stride, const float* c,
-                                                   const float* q,
-                                                   int16_t* coef) {
-  float x[64];
-  for (int i = 0; i < 8; ++i)
-    for (int j = 0; j < 8; ++j)
-      x[i * 8 + j] = float(px[int64_t(i) * stride + j]) - 128.0f;  // exact
-  float t[64];  // C . B
-  for (int i = 0; i < 8; ++i)
-    for (int j = 0; j < 8; ++j) {
-      float acc = __fmul_rn(c[i * 8], x[j]);
-      for (int k = 1; k < 8; ++k)
-        acc = __fadd_rn(acc, __fmul_rn(c[i * 8 + k], x[k * 8 + j]));
-      t[i * 8 + j] = acc;
-    }
-  for (int i = 0; i < 8; ++i)  // (C . B) . C^T, quantized
-    for (int j = 0; j < 8; ++j) {
-      float acc = __fmul_rn(t[i * 8], c[j * 8]);
-      for (int k = 1; k < 8; ++k)
-        acc = __fadd_rn(acc, __fmul_rn(t[i * 8 + k], c[j * 8 + k]));
-      coef[i * 8 + j] = int16_t(int(roundf(__fdiv_rn(acc, q[i * 8 + j]))));
-    }
-}
+// K3's and K4's CTA: 32 groups of 8 lanes, each group one block at a time.
+constexpr int kTransformThreads = 256;
+constexpr int kTransformGroups = kTransformThreads / 8;
 
 // 8 consecutive floats of 16-byte aligned shared memory as two vector loads.
 __device__ __forceinline__ void load_row(const float* p, float (&v)[8]) {
@@ -53,29 +29,38 @@ __device__ __forceinline__ void load_row(const float* p, float (&v)[8]) {
   v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
 }
 
-// K1's transform, one 8x8 block per group of 8 lanes, with
-// dct_quantize_block's chains: lane `lane` computes row `lane` of C . B and
-// then of the quantized (C . B) . C^T into out, in registers. x is the
-// group's 64-float slice of shared memory for the pixels - 128; c and q are
-// 16-byte aligned. A group with active false reads no pixels and computes
-// on zeros. Every lane of the warp calls this.
-__device__ __forceinline__ void dct_quantize_group(
-    const uint8_t* px, int stride, bool active, const float* c,
-    const float* q, float* x, int lane, int16_t (&out)[8]) {
+// Row `lane` of the 8x8 block at px (row stride `stride`): its 8 pixels,
+// 4 to a word, with one 8-byte load where the row is 8-byte aligned, else
+// byte loads; 0 where active is false.
+__device__ __forceinline__ uint2 load_pixel_row(const uint8_t* px,
+                                                int stride, bool active,
+                                                int lane) {
+  uint2 pix = make_uint2(0, 0);
+  if (!active) return pix;
   const uint8_t* src = px + int64_t(lane) * stride;
-  uint32_t pix[2] = {0, 0};  // the lane's 8 pixels, 4 to a word
-  if (active) {
-    if ((reinterpret_cast<uintptr_t>(src) & 7) == 0) {  // one 8-byte load
-      const uint2 w = *reinterpret_cast<const uint2*>(src);
-      pix[0] = w.x, pix[1] = w.y;
-    } else {
+  if ((reinterpret_cast<uintptr_t>(src) & 7) == 0)
+    return *reinterpret_cast<const uint2*>(src);
 #pragma unroll
-      for (int k = 0; k < 8; ++k) pix[k / 4] |= uint32_t(src[k]) << (8 * (k % 4));
-    }
+  for (int k = 0; k < 4; ++k) {
+    pix.x |= uint32_t(src[k]) << (8 * k);
+    pix.y |= uint32_t(src[k + 4]) << (8 * k);
   }
+  return pix;
+}
+
+// The forward transform of one 8x8 block per group of 8 lanes: lane `lane`
+// holds row `lane` of the pixels (load_pixel_row) and computes row `lane`
+// of C . B and then of the quantized (C . B) . C^T into out, in registers.
+// x is the group's 64-float slice of shared memory for the pixels - 128; c
+// and q are 16-byte aligned. Every lane of the warp calls this.
+__device__ __forceinline__ void dct_quantize_group(uint2 pix, const float* c,
+                                                   const float* q, float* x,
+                                                   int lane,
+                                                   int16_t (&out)[8]) {
 #pragma unroll
   for (int k = 0; k < 8; ++k)
-    x[lane * 8 + k] = float((pix[k / 4] >> (8 * (k % 4))) & 0xFF) - 128.0f;
+    x[lane * 8 + k] =
+        float(((k < 4 ? pix.x : pix.y) >> (8 * (k % 4))) & 0xFF) - 128.0f;
   __syncwarp();
   float crow[8];
   load_row(c + lane * 8, crow);
@@ -97,35 +82,10 @@ __device__ __forceinline__ void dct_quantize_group(
     load_row(c + k * 8, cj);
     float acc = __fmul_rn(cb[0], cj[0]);
 #pragma unroll
-    for (int kk = 1; kk < 8; ++kk) acc = __fadd_rn(acc, __fmul_rn(cb[kk], cj[kk]));
+    for (int kk = 1; kk < 8; ++kk)
+      acc = __fadd_rn(acc, __fmul_rn(cb[kk], cj[kk]));
     out[k] = int16_t(int(roundf(__fdiv_rn(acc, qr[k]))));
   }
-}
-
-// Row-major coefficients -> 8x8 pixels at px (row stride `stride`).
-__device__ __forceinline__ void dequantize_idct_block(const int16_t* coef,
-                                                      const float* c,
-                                                      const float* q,
-                                                      uint8_t* px,
-                                                      int stride) {
-  float x[64];
-  for (int i = 0; i < 64; ++i) x[i] = __fmul_rn(float(coef[i]), q[i]);
-  float t[64];  // C^T . X
-  for (int i = 0; i < 8; ++i)
-    for (int j = 0; j < 8; ++j) {
-      float acc = __fmul_rn(c[i], x[j]);
-      for (int k = 1; k < 8; ++k)
-        acc = __fadd_rn(acc, __fmul_rn(c[k * 8 + i], x[k * 8 + j]));
-      t[i * 8 + j] = acc;
-    }
-  for (int i = 0; i < 8; ++i)  // (C^T . X) . C
-    for (int j = 0; j < 8; ++j) {
-      float acc = __fmul_rn(t[i * 8], c[j]);
-      for (int k = 1; k < 8; ++k)
-        acc = __fadd_rn(acc, __fmul_rn(t[i * 8 + k], c[k * 8 + j]));
-      const int r = int(roundf(acc)) + 128;
-      px[int64_t(i) * stride + j] = uint8_t(r < 0 ? 0 : (r > 255 ? 255 : r));
-    }
 }
 
 // The DCT matrix in registers for dequantize_idct_group: all of C, and
@@ -147,13 +107,12 @@ __device__ __forceinline__ void load_idct_regs(const float* c, int lane,
   }
 }
 
-// K2's transform, one 8x8 block per group of 8 lanes, with
-// dequantize_idct_block's chains: lane `lane` dequantizes `row`, row `lane`
-// of the block's int16 coefficients, into x (the group's 64-float slice of
-// shared memory), then computes row `lane` of C^T . X and of (C^T . X) . C
-// in registers and stores the row's 8 pixels at px + lane * stride, all 0
-// if bad. q is 16-byte aligned. A group with store false writes nothing.
-// Every lane of the warp calls this.
+// The inverse transform of one 8x8 block per group of 8 lanes: lane `lane`
+// dequantizes `row`, row `lane` of the block's int16 coefficients, into x
+// (the group's 64-float slice of shared memory), then computes row `lane`
+// of C^T . X and of (C^T . X) . C in registers and stores the row's 8
+// pixels at px + lane * stride, all 0 if bad. q is 16-byte aligned. A group
+// with store false writes nothing. Every lane of the warp calls this.
 __device__ __forceinline__ void dequantize_idct_group(
     uint4 row, const IdctRegs& c, const float* q, float* x, int lane,
     bool store, bool bad, uint8_t* px, int stride) {

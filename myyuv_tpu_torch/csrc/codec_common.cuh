@@ -10,12 +10,12 @@
 // (128 bytes, 16-byte aligned in every [N, 64] tensor).
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace myyuv {
 
-constexpr int kThreads = 128;   // CUDA threads per thread block
 constexpr int kLaneWords = 64;  // 256-byte lane
 
 // zigzag scan: message position i reads coefficient kZigzag[i] of the block
@@ -29,6 +29,7 @@ struct BlockLoc {
   int plane;       // 0 = Y, 1 = U, 2 = V
   int stride;      // plane row length in bytes
   int64_t offset;  // byte offset of the block's top-left pixel in its plane
+  int col, pbw;    // the block's column, and its plane's width, in blocks
 };
 
 // Frame of h x w luma (h, w divisible by 16): total 8x8 blocks of Y, U, V.
@@ -52,8 +53,31 @@ __device__ inline BlockLoc locate_block(int64_t b, int h, int w) {
     k = b - ny - (r.plane == 2 ? nc : 0);
     pbw = w / 16;
   }
-  r.offset = (k / pbw) * 8 * r.stride + (k % pbw) * 8;
+  r.pbw = int(pbw);
+  r.col = int(k % pbw);
+  r.offset = (k / pbw) * 8 * r.stride + r.col * 8;
   return r;
+}
+
+// The place of block b + step, from `loc`, the place of block b: `step`
+// columns on along b's block row, or, where that leaves the row, located
+// anew. A walk along a row of blocks takes no division per block.
+__device__ inline void step_block(BlockLoc& loc, int64_t b, int step, int h,
+                                  int w) {
+  loc.col += step;
+  if (loc.col < loc.pbw)
+    loc.offset += 8 * step;
+  else
+    loc = locate_block(b + step, h, w);
+}
+
+// The run of blocks [first, last) of this thread's warp, when the grid's
+// warps split n blocks into runs of one length, a multiple of 4.
+__device__ inline void warp_run(int64_t n, int64_t& first, int64_t& last) {
+  const int64_t warps = int64_t(gridDim.x) * (blockDim.x / 32);
+  const int64_t run = (n + 4 * warps - 1) / (4 * warps) * 4;
+  first = (int64_t(blockIdx.x) * (blockDim.x / 32) + threadIdx.x / 32) * run;
+  last = first + run < n ? first + run : n;
 }
 
 // The DCT matrix and the three plane tables, staged in shared memory once per
@@ -70,20 +94,29 @@ __device__ inline void load_params(CodecParams& p, const float* dct,
   __syncthreads();
 }
 
-// One coefficient row to or from device memory as 8 aligned 16-byte
-// accesses; `coef` is a 16-byte aligned local array.
-__device__ __forceinline__ void load_coeffs(const int16_t* row,
-                                            int16_t* coef) {
-  const uint4* src = reinterpret_cast<const uint4*>(row);
-  uint4* dst = reinterpret_cast<uint4*>(coef);
-  for (int k = 0; k < 8; ++k) dst[k] = src[k];
-}
+constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ void store_coeffs(const int16_t* coef,
-                                             int16_t* row) {
-  const uint4* src = reinterpret_cast<const uint4*>(coef);
-  uint4* dst = reinterpret_cast<uint4*>(row);
-  for (int k = 0; k < 8; ++k) dst[k] = src[k];
+// The grid of a kernel whose CTAs of `threads` threads walk n blocks,
+// `per_cta` at a time: the CTAs the current device holds at once, and no
+// more than the blocks need. The runtime is asked once per device (the
+// occupancy query costs host time at every launch) and the answer kept in
+// `held`, the launcher's own.
+inline unsigned resident_grid(const void* kernel, int threads, int per_cta,
+                              int64_t n,
+                              std::atomic<int64_t> (&held)[kMaxDevices]) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int64_t ctas = dev < kMaxDevices ? held[dev].load() : 0;
+  if (ctas == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                  0);
+    ctas = int64_t(sms) * (per_sm > 0 ? per_sm : 1);
+    if (dev < kMaxDevices) held[dev].store(ctas);
+  }
+  const int64_t needed = (n + per_cta - 1) / per_cta;
+  return unsigned(needed < ctas ? needed : ctas);
 }
 
 }  // namespace myyuv

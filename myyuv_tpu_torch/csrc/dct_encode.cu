@@ -23,8 +23,8 @@
 // data lives in the group's shared-memory scratch, so nothing goes to local
 // memory (ptxas: 0-byte stack frame); the lane leaves as 16-byte stores.
 //
-// The coefficients are those of K3's dct_quantize_block (block_dct.cuh
-// states the exactness rules) and the stage after them is K5's, so
+// The transform is K3's, block_dct.cuh::dct_quantize_group (the header
+// states the exactness rules), and the stage after it is K5's, so
 // K5(K3(x)) == K1(x).
 
 #include "block_dct.cuh"
@@ -52,8 +52,8 @@ dct_encode_kernel(const uint8_t* __restrict__ y, const uint8_t* __restrict__ u,
   const BlockLoc loc = locate_block(active ? b : 0, h, w);
   const uint8_t* px = (loc.plane == 0 ? y : loc.plane == 1 ? u : v) + loc.offset;
   int16_t coef[8];  // row `lane` of the block
-  dct_quantize_group(px, loc.stride, active, prm.c, prm.q + 64 * loc.plane,
-                     s.pixels, lane, coef);
+  dct_quantize_group(load_pixel_row(px, loc.stride, active, lane), prm.c,
+                     prm.q + 64 * loc.plane, s.pixels, lane, coef);
 #pragma unroll
   for (int k = 0; k < 8; ++k) s.msg[izz[lane * 8 + k]] = coef[k];
   __syncwarp();

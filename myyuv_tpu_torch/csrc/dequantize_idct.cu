@@ -1,5 +1,6 @@
-// K4: dequantize + IDCT of a whole frame, one thread per 8x8 block, from
-// row-major int16 coefficient rows straight into the [H, W] planes.
+// K4: dequantize + IDCT of a whole frame, one 8x8 block per group of 8
+// lanes, from row-major int16 coefficient rows straight into the [H, W]
+// planes.
 //
 // Replaces the TPU kernels myyuv_tpu/kernels/pallas_dct8.py::
 // _dequantize_idct_kernel8p (launched by dequantize_idct_words), and through
@@ -10,35 +11,56 @@
 //
 // What bounds it on the H100: memory traffic by count (a 4032x3008 frame
 // reads 36.4 MB of coefficients and writes 18.2 MB of planes, ~16 us at
-// 3.35 TB/s), in practice the per-thread chain of 2 x 512 dependent f32
-// operations on local arrays.
-// What the design does about it: 284k independent threads per 4K frame hide
-// the chains' latency; each row is read as 8 aligned 16-byte loads; the DCT
-// matrix and tables sit in shared memory; pixels go straight into the plane
-// layout, so nothing follows the kernel. The stage is block_dct.cuh's
-// dequantize_idct_block, whose chains K2's dequantize_idct_group computes
-// too, so K4(K6(s)) equals K2(s).
+// 3.35 TB/s), in practice the issue of its instructions: with -fmad=false
+// every product and sum of the chains is one.
+// What the design does about it: block_dct.cuh's dequantize_idct_group,
+// K2's transform too, so K4(K6(s)) == K2(s). A group of 8 lanes takes a
+// block, lane r row r: it reads the row's coefficients with one 16-byte
+// load (a warp reads 512 contiguous bytes), computes row r of both chains
+// in registers, and writes its 8 pixels with one 8-byte store; the DCT
+// matrix stays in registers (IdctRegs, as in K2). Nothing goes to local
+// memory. The grid is the CTAs the card holds at once; each warp
+// walks its own run of blocks four at a time (step_block: no division per
+// block), with the next block's row loaded before the current block's
+// chains.
 
 #include "block_dct.cuh"
 
 namespace myyuv {
 namespace {
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTransformThreads)
 dequantize_idct_kernel(const int16_t* __restrict__ coeffs, int h, int w,
                        const float* __restrict__ qt,
                        const float* __restrict__ dct,
                        uint8_t* __restrict__ y, uint8_t* __restrict__ u,
                        uint8_t* __restrict__ v) {
-  __shared__ CodecParams prm;
-  load_params(prm, dct, qt);
-  const int64_t b = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (b >= frame_blocks(h, w)) return;
-  const BlockLoc loc = locate_block(b, h, w);
-  uint8_t* px = (loc.plane == 0 ? y : loc.plane == 1 ? u : v) + loc.offset;
-  __align__(16) int16_t coef[64];
-  load_coeffs(coeffs + b * 64, coef);
-  dequantize_idct_block(coef, prm.c, prm.q + 64 * loc.plane, px, loc.stride);
+  __shared__ __align__(16) CodecParams prm;  // read as float4
+  __shared__ __align__(16) float x[kTransformGroups][64];
+  load_params(prm, dct, qt);  // synchronises the CTA
+  const int lane = threadIdx.x % 8, group = threadIdx.x / 8;
+  IdctRegs c;
+  load_idct_regs(prm.c, lane, c);
+  int64_t b, last;
+  warp_run(frame_blocks(h, w), b, last);
+  b += group % 4;  // a round of the warp: four blocks side by side
+  BlockLoc loc = locate_block(b, h, w);
+  const auto coeff_row = [&](int64_t blk) {
+    return blk < last
+               ? reinterpret_cast<const uint4*>(coeffs + 64 * blk)[lane]
+               : make_uint4(0, 0, 0, 0);
+  };
+  uint4 next = coeff_row(b);
+  // b - group % 4 is the round's first block: the loop is warp-uniform
+  for (; b - group % 4 < last; b += 4) {
+    const uint4 row = next;
+    next = coeff_row(b + 4);  // the next block's row, in flight
+    uint8_t* px = (loc.plane == 0 ? y : loc.plane == 1 ? u : v) + loc.offset;
+    __syncwarp();  // the group's previous block is read out of x
+    dequantize_idct_group(row, c, prm.q + 64 * loc.plane, x[group], lane,
+                          b < last, false, px, loc.stride);
+    step_block(loc, b, 4, h, w);
+  }
 }
 
 }  // namespace
@@ -54,8 +76,11 @@ extern "C" int myyuv_dequantize_idct(const void* coeffs, int64_t h,
                                      void* v, void* stream) {
   const int64_t n = myyuv::frame_blocks(h, w);
   if (n > 0) {
-    const int64_t grid = (n + myyuv::kThreads - 1) / myyuv::kThreads;
-    myyuv::dequantize_idct_kernel<<<unsigned(grid), myyuv::kThreads, 0,
+    static std::atomic<int64_t> held[myyuv::kMaxDevices];
+    const unsigned grid = myyuv::resident_grid(
+        reinterpret_cast<const void*>(myyuv::dequantize_idct_kernel),
+        myyuv::kTransformThreads, myyuv::kTransformGroups, n, held);
+    myyuv::dequantize_idct_kernel<<<grid, myyuv::kTransformThreads, 0,
                                     static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int16_t*>(coeffs), int(h), int(w),
         static_cast<const float*>(qt), static_cast<const float*>(dct),

@@ -161,8 +161,12 @@ def as_one_frame(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Contiguous [..., H, W] + 2x [..., H/2, W/2] planes -> views of one
     frame of prod(...) * H rows, whose raster blocks are the plane-major
-    batch order. Raises ValueError on other shapes or strides."""
+    batch order. Raises ValueError on other shapes or strides, and unless
+    H and W are multiples of 16 (else chroma blocks would straddle
+    frames)."""
     *lead, h, w = y.shape
+    if h % 16 or w % 16:
+        raise ValueError("frame height and width must be multiples of 16")
     for name, t, shape in (("y", y, (*lead, h, w)),
                            ("u", u, (*lead, h // 2, w // 2)),
                            ("v", v, (*lead, h // 2, w // 2))):

@@ -149,13 +149,18 @@ def blocks_to_plane(blocks: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 def bgrx_to_iyuv(pixels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
                                                 torch.Tensor]:
-    """[H, W, 4] uint8 BGRX (top-down) -> (Y, U, V) uint8 planes.
+    """[..., H, W, 4] uint8 BGRX (top-down) -> (Y, U, V) uint8 planes
+    [..., H, W] and 2x [..., H/2, W/2].
 
     Bit-exact model of the IYUV converter (myyuv_yuv.cpp:34-52,88-127):
     float32 luma with a truncating cast, chroma as truncating cast + 128
     with wraparound, and 4:2:0 chroma equal to the sum of per-sample
     divide_roundnearest(c, 4) over each 2x2 quad (myyuv_yuv.cpp:114-121).
+    Raises ValueError on an odd H or W, as the scalar oracle asserts.
     """
+    if pixels.dim() < 3 or pixels.shape[-3] % 2 or pixels.shape[-2] % 2:
+        raise ValueError("BGRX pixels must be [..., H, W, 4] with H and W "
+                         "even")
     b = pixels[..., 0].to(F32)
     g = pixels[..., 1].to(F32)
     r = pixels[..., 2].to(F32)
@@ -166,8 +171,8 @@ def bgrx_to_iyuv(pixels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
 
     def quad_sum(c: torch.Tensor) -> torch.Tensor:
         q = (c + 2) >> 2
-        return (q[0::2, 0::2] + q[0::2, 1::2] + q[1::2, 0::2]
-                + q[1::2, 1::2]) & 255
+        return (q[..., 0::2, 0::2] + q[..., 0::2, 1::2]
+                + q[..., 1::2, 0::2] + q[..., 1::2, 1::2]) & 255
 
     return (y.to(torch.uint8), quad_sum(cb).to(torch.uint8),
             quad_sum(cr).to(torch.uint8))

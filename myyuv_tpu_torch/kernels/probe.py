@@ -19,12 +19,17 @@
 * ``smooth_picture``: the smooth XRGB8888 picture of ``chip_smoke.py``'s
   CLI phase, the frame on which it and ``tools/kernel_ab.py`` time the
   kernels.
-* ``cuda_ms``: the device time of a call, by CUDA events.
+* ``cuda_ms``: the device time of a call, by CUDA events around calls
+  queued behind a busy card, so the host's work is left out;
+  ``host_inclusive_ms``: CUDA events around one call on an idle card, for
+  a function that synchronises (the plain decoder), whose time then
+  includes the host's work.
 """
 
 from __future__ import annotations
 
 import statistics
+import time
 
 import numpy as np
 import torch
@@ -457,11 +462,61 @@ def smooth_picture(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
     return px
 
 
-def cuda_ms(fn, reps: int = 7) -> float:
-    """Median device time of fn() in ms over ``reps`` readings, after two
-    warm-up calls: CUDA events around one call each. The reading starts
-    before fn's host work, so it also counts whatever of that work the
-    idle card waits for."""
+def _sleep_cycles_per_ms() -> float:
+    """Cycles of ``torch.cuda._sleep`` per ms of device time, from one
+    timed sleep."""
+    cycles = 1 << 20
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(cycles)
+    b.record()
+    torch.cuda.synchronize()
+    return cycles / a.elapsed_time(b)
+
+
+def cuda_ms(fn, reps: int = 7, calls: int = 10) -> float:
+    """Median device time of one fn() in ms over ``reps`` readings, after
+    two warm-up calls. A reading is CUDA events around ``calls``
+    back-to-back calls, divided by ``calls``, queued behind a sleep kernel
+    that lasts twice as long as the host took to enqueue them (plus 1 ms):
+    the card runs the calls one after another, and the host's work (checks,
+    allocation, launch) is not in the time. Raises RuntimeError if the
+    start event had passed by the time the host had queued the calls: then
+    the card may have waited on the host (a fn that synchronises always
+    does; time it with ``host_inclusive_ms``)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    cycles = int(_sleep_cycles_per_ms() * (2 * enqueue_ms + 1.0))
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        host_paced = a.query()
+        torch.cuda.synchronize()
+        if host_paced:
+            raise RuntimeError("cuda_ms: the card ran out of queued work "
+                               "before the host had queued the calls")
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+def host_inclusive_ms(fn, reps: int = 7) -> float:
+    """Median time of fn() in ms over ``reps`` readings, after two warm-up
+    calls: CUDA events around one call each on an idle card. The reading
+    starts before fn's host work, so it counts whatever of that work the
+    card waits for."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()

@@ -1,12 +1,13 @@
-"""A/B timing of the entropy kernels K1 (``dct_encode``), K5
-(``huffman_encode``), K2 (``decode_idct``) and K6 (``huffman_decode``)
-across source trees, on one CUDA card.
+"""A/B timing of the six kernels -- K1 (``dct_encode``), K5
+(``huffman_encode``), K2 (``decode_idct``), K6 (``huffman_decode``), K3
+(``dct_quantize``) and K4 (``dequantize_idct``) -- across source trees, on
+one CUDA card.
 
 Run from the repository root on a machine with a CUDA card::
 
     python3 -m myyuv_tpu_torch.tools.kernel_ab [--other LABEL=DIR ...]
 
-Builds the four kernels with ``kernels/build.py`` (all builds in parallel)
+Builds the six kernels with ``kernels/build.py`` (all builds in parallel)
 from this checkout's ``csrc/`` (label ``this``) and from each ``DIR`` given
 by ``--other`` (the ``myyuv_tpu_torch/csrc`` of another commit, unpacked
 for example with ``git archive <commit> myyuv_tpu_torch/csrc | tar -x -C
@@ -15,10 +16,12 @@ spills. On two 4032x3008 q50 frames -- ``cli``, ``probe.smooth_picture``
 converted to IYUV as ``-to_yuv IYUV`` does, and ``noise``, uniform random
 planes -- it holds every build's outputs to the plain versions' (the
 encoders' lanes, sizes and err; the decoders' coefficients or planes and
-err, on the plain encoder's stream of the frame), then times every build
-of each kernel with ``probe.cuda_ms`` (chip_smoke's timer), calling the C
-entry points directly: 7 rounds, the builds in turns (forward, then
-backward order), one reading each. It prints the median per build, kernel
+err, on the plain encoder's stream of the frame; K3's coefficients and
+K4's planes of them), then times every build of each kernel with
+``probe.cuda_ms`` (chip_smoke's timer: back-to-back calls queued behind a
+busy card, so the host's work is left out), calling the C entry points
+directly: 7 rounds, the builds in turns (forward, then backward order),
+one reading each. It prints the median per build, kernel
 and frame beside the card's name and power limit, and one JSON line. As a
 yardstick it also times ``lanes.zero_()``, the write of the 256-byte lanes
 alone that both encoders' output contract costs.
@@ -45,7 +48,8 @@ from myyuv_tpu_torch.kernels import device as kdev
 
 H, W = 3008, 4032
 REPS = 7
-KERNELS = ("dct_encode", "huffman_encode", "decode_idct", "huffman_decode")
+KERNELS = ("dct_encode", "huffman_encode", "decode_idct", "huffman_decode",
+           "dct_quantize", "dequantize_idct")
 
 
 def ptxas_summary(log: str) -> str:
@@ -92,7 +96,7 @@ def main(argv=None) -> int:
     stream = torch.cuda.current_stream(dev).cuda_stream
     results = {}
     for frame, planes in (("cli", cli), ("noise", noise)):
-        coeffs = transform.dct_quantize_blocks(*planes, qt, dct)
+        coeffs = transform.dct_quantize_blocks_plain(*planes, qt, dct)
         want = encode.dct_encode_blocks_plain(*planes, qt, dct)
         check5 = edev.encode_lanes(coeffs)
         content = device_stream.compact_chunks(want[0], want[1])
@@ -121,6 +125,14 @@ def main(argv=None) -> int:
             "huffman_decode": ((rows, err), decode.decode_blocks_plain(
                 content, sizes, offsets), lambda f: f(
                 *ins, n, rows.data_ptr(), err.data_ptr(), stream)),
+            "dct_quantize": ((rows,), (coeffs,), lambda f: f(
+                *(p.data_ptr() for p in planes), H, W, qt.data_ptr(),
+                dct.data_ptr(), rows.data_ptr(), stream)),
+            "dequantize_idct": ((y, u, v),
+                                transform.dequantize_idct_blocks_plain(
+                                    coeffs, qt, dct, H, W), lambda f: f(
+                coeffs.data_ptr(), H, W, qt.data_ptr(), dct.data_ptr(),
+                y.data_ptr(), u.data_ptr(), v.data_ptr(), stream)),
         }
         for name, (got, plain, call) in calls.items():
             for label in trees:

@@ -169,3 +169,25 @@ def test_batch_api_rejects_what_it_does_not_take():
     qts = batch.plane_qtables([50] * 3, "cpu")
     with pytest.raises(ValueError):
         batch.roundtrip_step(y, ut, u, *qts)
+
+
+def test_batch_of_frames_off_16_rows_refused_like_jax(rng):
+    """[2, 8, 16] frames: B*H = 16 would pass a one-frame check, but each
+    frame's chroma blocks would straddle two frames. Every batch entry
+    refuses it, as the JAX package's ``roundtrip_batch`` does."""
+    y, u, v = _batch(rng, 2, 16, 32)
+    y, u, v = y[:, :8, :16].copy(), u[:, :4, :8].copy(), v[:, :4, :8].copy()
+    t = [torch.from_numpy(p) for p in (y, u, v)]
+    dct, qt = pipeline.codec_params([50] * 3, "cpu")
+    qts = batch.plane_qtables([50] * 3, "cpu")
+    for call in (lambda: device_stream.compress_batch(*t, qt, dct),
+                 lambda: device_stream.roundtrip_batch(*t, qt, dct),
+                 lambda: device_stream.compress_batch_to_streams(
+                     (y, u, v), qt, dct),
+                 lambda: batch.encode_planes(*t, *qts),
+                 lambda: batch.roundtrip_step(*t, *qts)):
+        with pytest.raises(ValueError, match="multiples of 16"):
+            call()
+    with pytest.raises(TypeError):
+        jax_ds.roundtrip_batch(*(jnp.asarray(p) for p in (y, u, v)),
+                               [jnp.asarray(q) for q in _jax_tables(50)])

@@ -215,6 +215,79 @@ def test_encoder_k1_reads_planes_off_8_byte_boundaries(rng, cuda):
         assert torch.equal(g, p)
 
 
+# 6 and 90 blocks leave the last CTA's groups, and a warp's, partly idle
+_TRANSFORM_SHAPES = [(16, 16), (48, 80), (64, 128)]
+
+
+@pytest.mark.parametrize("q", [1, 10, 35, 50, 75, 90, 100])
+def test_transform_k3_k4_match_plain(rng, cuda, q):
+    """K3 on frames of random planes with the contraction-probe blocks and
+    K4 on K3's coefficients and on random int16 rows: coefficients and
+    pixels identical to the plain versions."""
+    dct, qt = pipeline.codec_params([q] * 3, cuda)
+    for h, w in _TRANSFORM_SHAPES:
+        planes = [torch.from_numpy(p).to(cuda) for p in _frame(rng, h, w)]
+        coeffs = transform.dct_quantize_blocks(*planes, qt, dct)
+        assert coeffs.is_cuda and torch.equal(
+            coeffs, transform.dct_quantize_blocks_plain(*planes, qt, dct))
+        rows = torch.from_numpy(rng.integers(
+            -2048, 2048, coeffs.shape).astype(np.int16)).to(cuda)
+        for c in (coeffs, rows):
+            got = transform.dequantize_idct_blocks(c, qt, dct, h, w)
+            for g, p in zip(got, transform.dequantize_idct_blocks_plain(
+                    c, qt, dct, h, w)):
+                assert g.is_cuda and torch.equal(g, p), (h, w)
+
+
+def test_transform_k3_k4_on_a_tall_batch_frame(rng, cuda):
+    """8 x 1088x1920 passed as one frame of 8704 rows, as the batch API
+    passes it: more blocks than the card holds groups at once, so every
+    group walks the frame several times."""
+    b, h, w = 8, 1088, 1920
+    dct, qt = pipeline.codec_params([50] * 3, cuda)
+    planes = [torch.from_numpy(rng.integers(0, 256, s, np.uint8)).to(cuda)
+              for s in ((b * h, w), (b * h // 2, w // 2),
+                        (b * h // 2, w // 2))]
+    coeffs = transform.dct_quantize_blocks(*planes, qt, dct)
+    assert torch.equal(coeffs, transform.dct_quantize_blocks_plain(
+        *planes, qt, dct))
+    for g, p in zip(transform.dequantize_idct_blocks(coeffs, qt, dct, b * h,
+                                                     w),
+                    transform.dequantize_idct_blocks_plain(coeffs, qt, dct,
+                                                           b * h, w)):
+        assert torch.equal(g, p)
+
+
+def test_transform_k3_reads_planes_off_8_byte_boundaries(rng, cuda):
+    """K3 loads a lane's 8 pixels at once only from an 8-byte aligned row;
+    planes that start off that boundary take its byte loads."""
+    h, w = 48, 80
+    planes = []
+    for i, shape in enumerate(((h, w), (h // 2, w // 2), (h // 2, w // 2))):
+        buf = torch.from_numpy(rng.integers(0, 256, shape[0] * shape[1] + 8,
+                                            np.uint8)).to(cuda)
+        planes.append(buf[i + 1:i + 1 + shape[0] * shape[1]].view(shape))
+    dct, qt = pipeline.codec_params([90] * 3, cuda)
+    assert torch.equal(transform.dct_quantize_blocks(*planes, qt, dct),
+                       transform.dct_quantize_blocks_plain(*planes, qt, dct))
+
+
+def test_timer_leaves_out_host_work(cuda):
+    """``probe.cuda_ms`` times the card's work only: a one-element add
+    reads a few microseconds, whatever the host spends per call; a call
+    that synchronises lets the card wait on the host, and the timer
+    refuses it."""
+    x = torch.zeros(1, device=cuda)
+    assert probe.cuda_ms(lambda: x.add_(1)) < 0.01
+
+    def synchronising():
+        x.add_(1)
+        torch.cuda.synchronize()
+
+    with pytest.raises(RuntimeError, match="host"):
+        probe.cuda_ms(synchronising)
+
+
 def _decoder_frame(sizes, offsets):
     """A 16 x 16m frame's worth of blocks: the family's chunks, then empty
     ones (code 1)."""

@@ -166,3 +166,25 @@ def test_bmp_to_iyuv_matches_jax(rng):
     assert got.to_bytes() == want.to_bytes()
     bgrx = pipeline.iyuv_to_bgrx(got, device="cpu")
     np.testing.assert_array_equal(bgrx, jax_pipeline.iyuv_to_bgrx(want))
+
+
+@pytest.mark.parametrize("h,w", [(7, 9), (5, 5), (4, 3), (3, 4), (9, 8)])
+def test_bmp_to_iyuv_refuses_odd_sizes(rng, tmp_path, capsys, h, w):
+    """An odd width or height raises MyYUVError, as the exact scalar
+    oracle refuses it, and the CLI reports the error (its BMP loader takes
+    widths that are multiples of 4, so there the odd size is a height)."""
+    from myyuv_tpu_torch import cli
+    px = rng.integers(0, 256, (h, w, 4), np.uint8)
+    image = tbmp.BMPImage.from_pixels(px)
+    with pytest.raises(MyYUVError, match="even"):
+        pipeline.bmp_to_iyuv(image, device="cpu")
+    with pytest.raises(AssertionError):
+        scalar.bgrx_to_iyuv(px)
+    if w % 4:
+        return
+    src = tmp_path / "odd.bmp"
+    image.dump(src)
+    assert cli.main([str(src), "-to_yuv", "IYUV", "-o",
+                     str(tmp_path / "a.myyuv"), "--device", "cpu"]) == 1
+    assert "even width and height" in capsys.readouterr().err
+    assert not (tmp_path / "a.myyuv").exists()

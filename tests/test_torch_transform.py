@@ -95,6 +95,24 @@ def test_bgrx_to_iyuv_matches_jax_and_scalar(rng):
         np.testing.assert_array_equal(g.numpy(), w)
 
 
+def test_bgrx_to_iyuv_batch_matches_jax(rng):
+    """A [B, H, W, 4] batch takes its 2x2 chroma quads on the last two
+    pixel axes, as the JAX package's [..., H, W, 4] contract says; an odd
+    H or W raises."""
+    px = rng.integers(0, 256, (4, 8, 16, 4), np.uint8)
+    got = kdev.bgrx_to_iyuv(torch.from_numpy(px))
+    jax_got = jax_device.bgrx_to_iyuv(jnp.asarray(px))
+    for g, j, shape in zip(got, jax_got, ((4, 8, 16), (4, 4, 8), (4, 4, 8))):
+        assert tuple(g.shape) == shape
+        np.testing.assert_array_equal(g.numpy(), np.asarray(j))
+    for f in range(4):
+        for g, w in zip(got, scalar.bgrx_to_iyuv(px[f])):
+            np.testing.assert_array_equal(g[f].numpy(), w)
+    for shape in ((7, 9, 4), (3, 4, 4), (2, 4, 5, 4)):
+        with pytest.raises(ValueError, match="even"):
+            kdev.bgrx_to_iyuv(torch.zeros(shape, dtype=torch.uint8))
+
+
 def test_iyuv_to_bgrx_matches_jax_and_scalar(rng):
     y = rng.integers(0, 256, (32, 64), np.uint8)
     u = rng.integers(0, 256, (16, 32), np.uint8)
