@@ -5,15 +5,16 @@ Run from the repository root on a machine with a CUDA card::
 
     python3 chip_smoke.py
 
-It builds the six CUDA kernels from ``myyuv_tpu_torch/csrc`` (nvcc, one
+It builds the eight CUDA kernels from ``myyuv_tpu_torch/csrc`` (nvcc, one
 process per source, all at once), then, each phase printing one line and any
 failure ending the run with a non-zero exit code:
 
 1. environment: Python, torch, CUDA and nvcc versions, the card;
-2. build of the six kernels, timed, with ptxas's registers, stack frame and
-   spills per kernel; all six (the lane-group encoders K1 and K5, the warp
-   decoders K2 and K6, the group transforms K3 and K4) must use no local
-   memory (0-byte stack frame, no spills);
+2. build of the eight kernels, timed, with ptxas's registers, stack frame
+   and spills per kernel instance; all eight (the lane-group encoders K1
+   and K5, the warp decoders K2 and K6, the group transforms K3 and K4, the
+   colour conversions X1 and X2) must use no local memory (0-byte stack
+   frame, no spills);
 3. on ten 4032x3008 frames (five content kinds: noise, gradient, flat,
    impulse, banded; q50 and q90; the contraction-probe blocks in every
    frame): K1 (csrc/dct_encode.cu), K3 (dct_quantize.cu) and K5
@@ -26,13 +27,18 @@ failure ending the run with a non-zero exit code:
    against K2(s); on a stream with corrupt chunks and on the decoder
    families (``probe.decoder_families``: every reachable error code, valid
    edge cases, offsets outside the content), K6 and K2 against their plain
-   versions and K6's error codes against K2's;
+   versions and K6's error codes against K2's; X2 (iyuv_to_bgrx.cu) on the
+   ten decoded frames and X1 (bgrx_to_iyuv.cu) on X2's pixels, X1 on a
+   4096x4096 frame holding every 24-bit colour once and X2 on planes
+   holding every (Y, U, V) triple once, against their plain versions;
 5. the main path through the CLI (``-to_yuv IYUV``, ``-compress DCT 50``,
    ``-decompress``) on a synthetic 4032x3008 XRGB8888 BMP, the launch counts
    set to 0 just before and read just after; the file's payload must equal
    the plain versions' stream and the decoded planes their plain decode;
-   then the same three commands at 1920x1088 with ``--device cuda`` and
-   ``--device cpu`` must write identical files;
+   ``-rgb`` and ``-preview`` of the compressed file, counts set to 0 before
+   each, the BMP's pixels equal to plain X2 of the plain decode; then the
+   same five commands at 1920x1088 with ``--device cuda`` and ``--device
+   cpu`` must write identical files;
 6. the staged route (``compress_frame_to_streams`` and
    ``decompress_streams_to_frame`` with ``fused=False``, K3 -> K5 and
    K6 -> K4) on the CLI frame at q50, counts set to 0 before and read
@@ -43,7 +49,9 @@ failure ending the run with a non-zero exit code:
    planes the round trip's; then ``batch.roundtrip_step`` on the same batch,
    planes equal to the plain versions' and the symbol histogram to numpy's
    ``bincount`` of the plain coefficients;
-8. every kernel was launched by the path that drives it;
+8. every kernel was launched by the path that drives it: ``-to_yuv``
+   launches X1 once, ``-rgb`` and ``-preview`` of the compressed file K2
+   and X2 once each and nothing else;
 9. times with CUDA events (median of 7; ``probe.cuda_ms``: back-to-back
    calls queued behind a busy card, so the wrappers' host work is left
    out): the six kernels against their plain versions on the CLI frame at
@@ -52,9 +60,21 @@ failure ending the run with a non-zero exit code:
    earlier runs (``probe.host_inclusive_ms``), which the plain versions of
    K1, K2, K5 and K6 take too (the plain decoder synchronises, and the
    plain encoder queues thousands of small launches), labelled
-   host-inclusive; staged against fused compress and decompress and
-   end-to-end ``compress_dct``/``decompress_dct`` on the host clock; the
-   8 x 1080p ``roundtrip_batch`` and ``roundtrip_step``.
+   host-inclusive; X1 and X2 on the CLI frame against their bound; staged
+   against fused compress and decompress and end-to-end
+   ``compress_dct``/``decompress_dct`` on the host clock; the 8 x 1080p
+   ``roundtrip_batch`` (K2 decoding K1's lanes in place) beside the same
+   round trip compacting first (the route before it), and
+   ``roundtrip_step``;
+10. capture, playback and streaming on the CLI frame, 32 frames, 4K q50:
+    ``ingest_frame`` (X1 + K1) and ``preview_frame`` (K2 + X2) against the
+    frame API and the plain versions, one launch of each kernel; the
+    drivers of ``engine/streaming.py`` (``roundtrip_stream``,
+    ``ingest_stream``, ``preview_stream``, ``compress_stream``) with flags,
+    totals and bytes equal to the frame API's and 32 launches a kernel; the
+    round trip and ingest drivers queue 16 frames behind a sleep kernel
+    without the card running dry (no host sync); sustained round trip,
+    ingest, preview and ``compress_stream`` fps on the host clock.
 
 It prints a JSON line with one entry per kernel (its launches on the path
 that drives it, max abs error against its plain version, times on the CLI
@@ -92,7 +112,12 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_FLOP_PER_S = 67e12          # H100 SXM float32, outside the tensor cores
 DCT_FLOP = 2 * 64 * 15 + 64     # per block: two 8-term chains + (de)quantize
 KERNELS = ("dct_encode", "decode_idct", "dct_quantize", "dequantize_idct",
-           "huffman_encode", "huffman_decode")
+           "huffman_encode", "huffman_decode", "bgrx_to_iyuv",
+           "iyuv_to_bgrx")
+# f32 operations a pixel: X1 3 products and 2 sums of the luma, 2
+# differences and 2 products of the chroma; X2 4 products, 4 sums
+CONVERT_FLOP = {"bgrx_to_iyuv": 9, "iyuv_to_bgrx": 8}
+NSTREAM = 32
 REPLACES = {
     "dct_encode": "myyuv_tpu/entropy/pallas_encode8.py:609",
     "decode_idct": "myyuv_tpu/entropy/pallas_decode8.py:189",
@@ -100,6 +125,8 @@ REPLACES = {
     "dequantize_idct": "myyuv_tpu/kernels/pallas_dct8.py:297",
     "huffman_encode": "myyuv_tpu/entropy/pallas_encode8.py:603",
     "huffman_decode": "myyuv_tpu/entropy/pallas_decode8.py:183+319",
+    "bgrx_to_iyuv": "myyuv_tpu/kernels/device.py:232",
+    "iyuv_to_bgrx": "myyuv_tpu/kernels/device.py:285",
 }
 
 
@@ -158,11 +185,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from myyuv_tpu_torch import cli
-    from myyuv_tpu_torch.engine import batch, device_stream, pipeline
+    from myyuv_tpu_torch.engine import (batch, device_stream, pipeline,
+                                        streaming)
     from myyuv_tpu_torch.entropy import decode, encode
     from myyuv_tpu_torch.entropy import device as edev
     from myyuv_tpu_torch.formats import bmp, dct_stream, yuv
-    from myyuv_tpu_torch.kernels import build, probe, transform
+    from myyuv_tpu_torch.kernels import build, convert, probe, transform
     from myyuv_tpu_torch.kernels import device as kdev
 
     dev = torch.device("cuda")
@@ -185,18 +213,17 @@ def main() -> int:
         build.load(name)
     print(f"[2 build] {len(KERNELS)} kernels for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for name in KERNELS:
+    for name in KERNELS:  # one report per kernel instance of the library
         log = logs.get(name, "")
-        regs = re.search(r"Used (\d+) registers", log)
-        stack = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                          r"stores, (\d+) bytes spill loads", log)
+        regs = re.findall(r"Used (\d+) registers", log)
+        stack = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                           r"stores, (\d+) bytes spill loads", log)
         print(f"[2 ptxas] {name}: "
-              + (f"{regs.group(1)} registers, {stack.group(1)} B stack, "
-                 f"{stack.group(2)}/{stack.group(3)} B spill st/ld"
+              + ("; ".join(f"{r} registers, {s[0]} B stack, {s[1]}/{s[2]} "
+                           f"B spill st/ld" for r, s in zip(regs, stack))
                  if regs and stack else "no report (library cached)"))
-        if stack:
-            check(stack.groups() == ("0", "0", "0"),
-                  f"{name} uses local memory: {stack.group(0)}")
+        check(all(st == ("0", "0", "0") for st in stack),
+              f"{name} uses local memory: {stack}")
 
     errs = dict.fromkeys(KERNELS, 0)
     rng = np.random.default_rng(2026)
@@ -250,6 +277,15 @@ def main() -> int:
           f"K3 {errs['dct_quantize']} K5 {errs['huffman_encode']}",
           flush=True)
 
+    def conversions(planes, tag):
+        """X2 on (y, u, v) and X1 on X2's pixels, each against its plain
+        version."""
+        bgrx = convert.iyuv_to_bgrx(*planes)
+        same([bgrx], [kdev.iyuv_to_bgrx(*planes)], errs, "iyuv_to_bgrx",
+             f"X2 differs from plain: {tag}")
+        same(convert.bgrx_to_iyuv(bgrx), kdev.bgrx_to_iyuv(bgrx), errs,
+             "bgrx_to_iyuv", f"X1 differs from plain: {tag}")
+
     for kind, q, planes, qt, dct, lanes, sizes, coeffs in streams:
         tag = f"{kind} q{q}"
         stream = device_stream.compact_chunks(lanes, sizes)
@@ -270,6 +306,7 @@ def main() -> int:
             f"K4 differs from plain: {tag}")
         check(all(torch.equal(a, b) for a, b in zip(k4, got)),
               f"K4(K6(s)) differs from K2(s): {tag}")
+        conversions(got[:3], tag)
         if kind == "noise" and q == 50:
             bad_stream, bad_sizes = stream.clone(), sizes.clone()
             noise_stream = (stream, sizes, offsets)
@@ -334,6 +371,18 @@ def main() -> int:
           f"{sorted(fam_codes)}); max_abs_err K2 "
           f"{errs['decode_idct']} K6 {errs['huffman_decode']} K4 "
           f"{errs['dequantize_idct']}", flush=True)
+    every = torch.from_numpy(probe.every_colour_bgrx(rng)).to(dev)
+    same(convert.bgrx_to_iyuv(every), kdev.bgrx_to_iyuv(every), errs,
+         "bgrx_to_iyuv", "X1 differs from plain on every colour")
+    triples = [torch.from_numpy(p).to(dev) for p in probe.every_yuv_triple()]
+    same([convert.iyuv_to_bgrx(*triples)], [kdev.iyuv_to_bgrx(*triples)],
+         errs, "iyuv_to_bgrx", "X2 differs from plain on every triple")
+    del every, triples
+    print(f"[4 X1/X2 vs plain] X2 on the 10 decoded {W4K}x{H4K} frames and "
+          f"X1 on its pixels, X1 on every 24-bit colour (4096x4096) and X2 "
+          f"on every (Y, U, V) triple (4096x4096): identical; max_abs_err "
+          f"X1 {errs['bgrx_to_iyuv']} X2 {errs['iyuv_to_bgrx']}",
+          flush=True)
 
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -392,7 +441,21 @@ def main() -> int:
         print(f"[5 main path] CLI -to_yuv/-compress DCT 50/-decompress "
               f"--device cuda on {W4K}x{H4K}: {t_cli:.2f} s, payload == "
               f"plain stream, planes == plain decode, PSNR-Y {psnr:.2f} dB, "
-              f"ratio {ratio:.2f}x", flush=True)
+              f"ratio {ratio:.2f}x; launches {launches['main']}", flush=True)
+
+        for op, out in (("rgb", "f-r.bmp"), ("preview", "f-p.txt")):
+            reset_launches()
+            run_cli(tmp / "f-c.myyuv", f"-{op}", "-o", tmp / out)
+            launches[op] = dict(build.launches)
+        rgb = bmp.BMPImage.load(tmp / "f-r.bmp").pixels_topdown()
+        check(np.array_equal(rgb, kdev.iyuv_to_bgrx(ry, ru, rv).cpu().numpy()),
+              "-rgb pixels differ from plain X2 of the plain decode")
+        check((tmp / "f-p.txt").read_text().count("\n") > 10,
+              "-preview wrote no picture")
+        print(f"[5 main path] CLI -rgb/-preview --device cuda of the "
+              f"compressed {W4K}x{H4K} file: BMP pixels == plain X2 of the "
+              f"plain decode; launches -rgb {launches['rgb']}, -preview "
+              f"{launches['preview']}", flush=True)
 
         synthetic_bmp(H1K, W1K, tmp / "g.bmp")
         files = {}
@@ -405,13 +468,17 @@ def main() -> int:
                     d / "c.myyuv", "--device", device)
             run_cli(d / "c.myyuv", "-decompress", "-o", d / "d.myyuv",
                     "--device", device)
-            files[device] = [(d / f).read_bytes()
-                             for f in ("a.myyuv", "c.myyuv", "d.myyuv")]
+            run_cli(d / "c.myyuv", "-rgb", "-o", d / "r.bmp", "--device",
+                    device)
+            run_cli(d / "c.myyuv", "-preview", "-o", d / "p.txt", "--device",
+                    device)
+            files[device] = [(d / f).read_bytes() for f in (
+                "a.myyuv", "c.myyuv", "d.myyuv", "r.bmp", "p.txt")]
         check(files["cuda"] == files["cpu"],
               "--device cuda and --device cpu files differ")
         print(f"[5 main path] {W1K}x{H1K}: --device cuda and --device cpu "
-              f"write identical files (to_yuv, DCT 50, decompress)",
-              flush=True)
+              f"write identical files (to_yuv, DCT 50, decompress, rgb, "
+              f"preview)", flush=True)
 
     frame_np = img.planes()
     reset_launches()
@@ -487,17 +554,25 @@ def main() -> int:
 
     path_of = {"dct_encode": "main", "decode_idct": "main",
                "dct_quantize": "staged", "dequantize_idct": "staged",
-               "huffman_encode": "staged", "huffman_decode": "staged"}
+               "huffman_encode": "staged", "huffman_decode": "staged",
+               "bgrx_to_iyuv": "main", "iyuv_to_bgrx": "rgb"}
     for name, path in path_of.items():
         check(launches[path][name] > 0,
               f"{name} never launched on the {path} path: {launches[path]}")
+    check(launches["main"]["bgrx_to_iyuv"] == 1,
+          f"-to_yuv launched X1 {launches['main']['bgrx_to_iyuv']} times")
+    for op in ("rgb", "preview"):
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(decode_idct=1, iyuv_to_bgrx=1)
+        check(launches[op] == want, f"-{op} launched {launches[op]}")
     for name in ("dct_encode", "decode_idct"):
         check(launches["batch"][name] > 0, f"batch path skipped {name}")
     for name in ("dct_quantize", "dequantize_idct"):
         check(launches["roundtrip_step"][name] > 0,
               f"roundtrip_step skipped {name}")
     print(f"[8 launches] main path {launches['main']}; staged route "
-          f"{launches['staged']}", flush=True)
+          f"{launches['staged']}; -rgb {launches['rgb']}; -preview "
+          f"{launches['preview']}", flush=True)
 
     # kernel times on the CLI frame's planes, q50
     n = sum(kdev.plane_block_counts(H4K, W4K))
@@ -507,6 +582,10 @@ def main() -> int:
 
     def queued(fn, reps):  # K3's and K4's plain versions: one call a reading
         return probe.cuda_ms(fn, reps, calls=1)
+
+    px_dev = torch.from_numpy(px).to(dev)
+    npix = H4K * W4K
+    convert_bytes = npix * 4 + npix * 3 // 2  # BGRX one way, planes the other
 
     # kernel, plain version, the plain version's timer, bound
     runs = {
@@ -543,6 +622,16 @@ def main() -> int:
             lambda: decode.decode_blocks_plain(stream, sizes, offsets),
             probe.host_inclusive_ms,
             bound_ms(stream.numel() + n * 12 + n * (128 + 4))),
+        "bgrx_to_iyuv": (
+            lambda: convert.bgrx_to_iyuv(px_dev),
+            lambda: kdev.bgrx_to_iyuv(px_dev),
+            probe.host_inclusive_ms, bound_ms(convert_bytes,
+                             npix * CONVERT_FLOP["bgrx_to_iyuv"])),
+        "iyuv_to_bgrx": (
+            lambda: convert.iyuv_to_bgrx(*planes),
+            lambda: kdev.iyuv_to_bgrx(*planes),
+            probe.host_inclusive_ms, bound_ms(convert_bytes,
+                             npix * CONVERT_FLOP["iyuv_to_bgrx"])),
     }
     one_call = {name: probe.host_inclusive_ms(runs[name][0], REPS)
                 for name in ("dct_quantize", "dequantize_idct")}
@@ -560,7 +649,10 @@ def main() -> int:
               for name, (t, p, b) in times.items()), flush=True)
     nplanes, nqt, ndct, ncoeffs = noise
     nstream, nsizes, noffsets = noise_stream
+    npx = convert.iyuv_to_bgrx(*nplanes)
     noise_runs = {
+        "bgrx_to_iyuv": lambda: convert.bgrx_to_iyuv(npx),
+        "iyuv_to_bgrx": lambda: convert.iyuv_to_bgrx(*nplanes),
         "dct_encode": lambda: encode.dct_encode_blocks(*nplanes, nqt, ndct),
         "decode_idct": lambda: decode.decode_idct_blocks(
             nstream, nsizes, noffsets, nqt, ndct, H4K, W4K),
@@ -579,7 +671,7 @@ def main() -> int:
           f"events around calls queued behind a busy card: " + ", ".join(
               f"{name} {t:.4f} ms" for name, t in noise_ms.items()),
           flush=True)
-    del noise, nplanes, ncoeffs, noise_stream, nstream, noise_runs
+    del noise, nplanes, ncoeffs, noise_stream, nstream, noise_runs, npx
 
     def fused_ms(fused):
         c = host_ms(lambda: device_stream.compress_frame(*planes, qt, dct,
@@ -594,6 +686,21 @@ def main() -> int:
                                                   device=dev))
     e2e_d = host_ms(lambda: pipeline.decompress_dct(comp, device=dev))
     rt_ms = host_ms(lambda: device_stream.roundtrip_batch(*bt, qt, dct))
+
+    def compacting_roundtrip():  # the round trip as it was: compact first
+        y1, u1, v1 = device_stream.as_one_frame(*bt)
+        csizes, ccontent, cerr = device_stream._encode(y1, u1, v1, qt, dct,
+                                                       True)
+        *_, derr = device_stream._decode(ccontent, csizes, qt, dct,
+                                         BATCH * H1K, W1K, True)
+        return ~(cerr.any() | derr.any())
+
+    rt_compact_ms = host_ms(compacting_roundtrip)
+    lanes4k, sizes4k, _ = encode.dct_encode_blocks(*planes, qt, dct)
+    mask_ms = host_ms(lambda: device_stream.compact_chunks(lanes4k, sizes4k))
+    scatter_ms = host_ms(lambda: device_stream.scatter_chunks(lanes4k,
+                                                              sizes4k))
+    del lanes4k
     step_ms = host_ms(lambda: batch.roundtrip_step(*bt, *qt, dct))
     print(f"[9 times] {card} | host clock, median of {REPS}: {W4K}x{H4K} "
           f"q50 compress_frame fused {fused_c:.3f} ms staged "
@@ -601,8 +708,83 @@ def main() -> int:
           f"staged {staged_d:.3f} ms; compress_dct {e2e_c:.3f} ms, "
           f"decompress_dct {e2e_d:.3f} ms [file in memory to file in "
           f"memory]; {BATCH} x {W1K}x{H1K} q50 roundtrip_batch "
-          f"{rt_ms:.3f} ms ({BATCH * 1e3 / rt_ms:.1f} frames/s); "
-          f"roundtrip_step {step_ms:.3f} ms", flush=True)
+          f"{rt_ms:.3f} ms ({BATCH * 1e3 / rt_ms:.1f} frames/s; the same "
+          f"round trip compacting first {rt_compact_ms:.3f} ms); "
+          f"roundtrip_step {step_ms:.3f} ms; compaction of the {W4K}x{H4K} "
+          f"lanes: mask select {mask_ms:.3f} ms, scatter_chunks "
+          f"{scatter_ms:.3f} ms", flush=True)
+
+    # 10: capture, playback and the streaming drivers on the CLI frame
+    reset_launches()
+    isizes, icontent, itotal, iok = device_stream.ingest_frame(px_dev, qt,
+                                                               dct)
+    torch.cuda.synchronize()
+    launches["ingest_frame"] = dict(build.launches)
+    check(bool(iok) and torch.equal(isizes, sizes)
+          and torch.equal(icontent[:int(itotal)], stream),
+          "ingest_frame differs from X1 and the frame API")
+    reset_launches()
+    pbgrx, pok = device_stream.preview_frame(stream, sizes, qt, dct, H4K,
+                                             W4K)
+    torch.cuda.synchronize()
+    launches["preview_frame"] = dict(build.launches)
+    check(bool(pok) and torch.equal(pbgrx, kdev.iyuv_to_bgrx(ry, ru, rv)),
+          "preview_frame differs from plain X2 of the plain decode")
+    del isizes, icontent, pbgrx
+    for step, pair in (("ingest_frame", ("bgrx_to_iyuv", "dct_encode")),
+                       ("preview_frame", ("decode_idct", "iyuv_to_bgrx"))):
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(dict.fromkeys(pair, 1))
+        check(launches[step] == want, f"{step} launched {launches[step]}")
+
+    reset_launches()
+    ok_r, tot_r, _ = streaming.roundtrip_stream([planes] * NSTREAM, qt, dct)
+    ok_i, tot_i, _ = streaming.ingest_stream([px_dev] * NSTREAM, qt, dct)
+    ok_p, _ = streaming.preview_stream((stream, sizes), qt, dct, H4K, W4K,
+                                       NSTREAM)
+    n_cs = 0
+    for st in streaming.compress_stream([planes] * NSTREAM, qt, dct):
+        for (gs, gc), (ws, wc) in zip(st, plain):
+            check(np.array_equal(gs, ws) and np.array_equal(gc, wc),
+                  "compress_stream differs from the frame API")
+        n_cs += 1
+    launches["streaming"] = dict(build.launches)
+    check(ok_r.all() and ok_i.all() and ok_p.all() and n_cs == NSTREAM,
+          "a streaming driver reported a bad frame or dropped one")
+    check((tot_r == stream.numel()).all() and (tot_i == stream.numel()).all(),
+          "streamed totals differ from the frame API")
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(dct_encode=3 * NSTREAM, decode_idct=2 * NSTREAM,
+                bgrx_to_iyuv=NSTREAM, iyuv_to_bgrx=NSTREAM)
+    check(launches["streaming"] == want,
+          f"streaming launched {launches['streaming']}")
+    for name, drive, item in (
+            ("roundtrip_stream", streaming.roundtrip_stream, planes),
+            ("ingest_stream", streaming.ingest_stream, px_dev)):
+        check(not probe.card_ran_dry(lambda fs: drive(fs, qt, dct), item),
+              f"{name} let the card run dry before its drain (host sync)")
+    rt_fps, rt_ok, rt_total, rt_stats = streaming.sustained_roundtrip_fps(
+        frame_np, qt, dct, n_frames=NSTREAM)
+    in_fps, pv_fps, pipe_ok = streaming.sustained_pipeline_fps(
+        frame_np, qt, dct, n_frames=NSTREAM)
+    cs_fps, cs_total, cs_first = streaming.compress_stream_timed(
+        frame_np, qt, dct, n_frames=NSTREAM)
+    check(rt_ok and pipe_ok and rt_total == cs_total == stream.numel(),
+          "a sustained run reported a bad frame or another size")
+    for (gs, gc), (ws, wc) in zip(cs_first, plain):
+        check(np.array_equal(gs, ws) and np.array_equal(gc, wc),
+              "compress_stream_timed differs from the frame API")
+    print(f"[10 capture/playback/streaming] {card} | {W4K}x{H4K} q50: "
+          f"ingest_frame == X1 + compress_frame, preview_frame == plain X2 "
+          f"of the plain decode (launches {launches['ingest_frame']}, "
+          f"{launches['preview_frame']}); {NSTREAM} frames through "
+          f"roundtrip_stream, ingest_stream, preview_stream, "
+          f"compress_stream: flags all ok, totals and bytes == frame API, "
+          f"launches {launches['streaming']}; round trip and ingest queue "
+          f"16 frames behind a sleep kernel without running dry; sustained "
+          f"(host clock, {NSTREAM} frames a window): round trip {rt_fps} "
+          f"fps (windows {rt_stats['windows_fps']}), ingest {in_fps} fps, "
+          f"preview {pv_fps} fps, compress_stream {cs_fps} fps", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",

@@ -7,13 +7,16 @@ registry with ``engine.pipeline.register_engine_codecs(device)``.
 
 Layout (each module is the counterpart of ``myyuv_tpu``'s of that name):
   formats/  byte-exact BMP / .myyuv / DCT-stream containers (numpy)
-  kernels/  constants, plain PyTorch transforms, the nvcc build of csrc/
-  entropy/  plain PyTorch Huffman coder; K1/K2 kernel wrappers
-  engine/   frame codec on the device; codec entry points and registry
+  kernels/  constants, plain PyTorch transforms, the nvcc build of csrc/,
+            the K3/K4 and X1/X2 (colour conversion) wrappers
+  entropy/  plain PyTorch Huffman coder; K1/K2, K5/K6 kernel wrappers
+  engine/   frame codec on the device, ingest/preview, streaming drivers;
+            codec entry points and registry
+  viewer/   BMP export and terminal preview (numpy)
   runtime/  structured errors
-  csrc/     the CUDA kernels (dct_encode.cu = K1, decode_idct.cu = K2)
+  csrc/     the CUDA kernels (K1-K6, X1 bgrx_to_iyuv.cu, X2 iyuv_to_bgrx.cu)
   cli.py    ``python -m myyuv_tpu_torch`` (-info/-to_yuv/-compress/
-            -decompress, --device cuda|cpu)
+            -decompress/-rgb/-preview, --device cuda|cpu)
 """
 
 from .formats.bmp import BMPImage

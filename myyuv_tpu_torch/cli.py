@@ -1,11 +1,13 @@
 """Command-line interface mirroring the reference ``myyuv_cli``.
 
-Port of ``myyuv_tpu/cli.py`` (the codec commands):
+Port of ``myyuv_tpu/cli.py`` (all its commands but ``-cube``):
 
   python -m myyuv_tpu_torch <image> -info
   python -m myyuv_tpu_torch <image.bmp> -to_yuv IYUV [-o out.myyuv]
   python -m myyuv_tpu_torch <image.myyuv> -compress DCT q [q2 q3] [-o out]
   python -m myyuv_tpu_torch <image.myyuv> -decompress [-o out.myyuv]
+  python -m myyuv_tpu_torch <image> -rgb [-o out.bmp]      # RGB export
+  python -m myyuv_tpu_torch <image> -preview [-o out.txt]  # terminal preview
 
 ``--device cuda`` (the default) runs the CUDA kernels, ``--device cpu``
 their plain PyTorch versions; both write the same bytes. Input type is
@@ -21,10 +23,13 @@ import time
 from pathlib import Path
 from typing import List, Optional
 
+import numpy as np
+
 from .engine import pipeline
 from .formats.bmp import BMPImage
 from .formats.yuv import Compressions, FourccFormats, YUVImage
 from .runtime.errors import MyYUVError
+from .viewer import export, terminal
 
 _FORMATS = {"IYUV": FourccFormats.IYUV}
 _COMPRESSIONS = {"DCT": Compressions.DCT}
@@ -98,6 +103,15 @@ def _default_out(path: Path, suffix: str, tag: str) -> Path:
     return path.with_name(path.stem + tag + suffix)
 
 
+def _bgrx(path: Path, kind: str, device: str) -> np.ndarray:
+    """An image's [H, W, 4] BGRX pixels: a BMP's own, a .myyuv's through
+    ``pipeline.iyuv_to_bgrx`` on ``device`` (K2 then X2 on the card for a
+    compressed file)."""
+    if kind == "bmp":
+        return export.ensure_bgrx(BMPImage.load(path).pixels_topdown())
+    return pipeline.iyuv_to_bgrx(YUVImage.load(path), device)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m myyuv_tpu_torch",
@@ -108,6 +122,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     g.add_argument("-to_yuv", metavar="FORMAT")
     g.add_argument("-compress", nargs="+", metavar=("TYPE", "QUALITY"))
     g.add_argument("-decompress", action="store_true")
+    g.add_argument("-rgb", action="store_true",
+                   help="decode to an RGB .bmp (viewer-equivalent export)")
+    g.add_argument("-preview", action="store_true",
+                   help="render to ANSI truecolor in the terminal")
     p.add_argument("-o", "--output", type=Path, default=None)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="'cuda' runs the CUDA kernels (default), 'cpu' "
@@ -119,6 +137,23 @@ def main(argv: Optional[List[str]] = None) -> int:
         kind = _sniff(args.image)
         if args.info:
             _print_info(args.image, kind)
+            return 0
+
+        if args.rgb:
+            with _Timer("rgb export"):
+                bgrx = _bgrx(args.image, kind, args.device)
+            out = args.output or _default_out(args.image, ".bmp", "-rgb")
+            export.write_bgrx_bmp(out, bgrx)
+            print(f"wrote {out}")
+            return 0
+
+        if args.preview:
+            text = terminal.render_ansi(_bgrx(args.image, kind, args.device))
+            if args.output:
+                args.output.write_text(text)
+                print(f"wrote {args.output}")
+            else:
+                print(text)
             return 0
 
         if args.to_yuv is not None:

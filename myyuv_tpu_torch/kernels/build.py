@@ -17,8 +17,8 @@ chains with ``__fmul_rn`` / ``__fadd_rn``), and there is no
 ``-Xptxas -v`` reports each kernel's registers, stack frame and spills
 (``build_all`` returns the reports).
 
-The wrappers (``kernels/transform.py``, ``entropy/encode.py``,
-``entropy/decode.py``) call ``launch``, which counts every launch in
+The wrappers (``kernels/transform.py``, ``kernels/convert.py``,
+``entropy/encode.py``, ``entropy/decode.py``) call ``launch``, which counts every launch in
 ``launches``: reset the counts to see which kernels a run went through.
 """
 
@@ -55,6 +55,9 @@ SIGNATURES = {
     "huffman_encode": ("myyuv_huffman_encode", [_P, _I64, _P, _P, _P, _P]),
     "huffman_decode": ("myyuv_huffman_decode",
                        [_P, _I64, _P, _P, _I64, _P, _P, _P]),
+    "bgrx_to_iyuv": ("myyuv_bgrx_to_iyuv", [_P, _I64, _I64, _P, _P, _P, _P]),
+    "iyuv_to_bgrx": ("myyuv_iyuv_to_bgrx",
+                     [_P, _P, _P, _I64, _I64, _I64, _P, _P]),
 }
 
 # kernel launches per kernel name (reset the values to count a run)

@@ -14,7 +14,8 @@ the reference's scalar float32 arithmetic bit for bit:
   conversion ``iyuv_to_bgrx`` rounds half to even (``torch.round``).
 
 These are the plain versions of the transform halves of the two CUDA
-kernels (``entropy/encode.py``, ``entropy/decode.py``).
+kernels (``entropy/encode.py``, ``entropy/decode.py``) and of the two
+colour-conversion kernels (``kernels/convert.py``).
 """
 
 from __future__ import annotations
@@ -29,7 +30,9 @@ F32 = torch.float32
 
 
 def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(value, dtype=F32, device=like.device)
+    """``value`` rounded to float32, as a scalar on ``like``'s device (a
+    fill, not a copy from the host, so a CUDA caller does not wait)."""
+    return torch.full((), value, dtype=F32, device=like.device)
 
 
 def dct_matrix(device) -> torch.Tensor:
@@ -180,17 +183,20 @@ def bgrx_to_iyuv(pixels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
 
 def iyuv_to_bgrx(y: torch.Tensor, u: torch.Tensor,
                  v: torch.Tensor) -> torch.Tensor:
-    """IYUV planes -> [H, W, 4] uint8 BGRX preview.
+    """IYUV planes -> [..., H, W, 4] uint8 BGRX preview.
 
-    The RGB export math of the reference's fragment shader
-    (myyuv_opengl/viewer/frag_yuv.glsl): R = Y + 1.403 V', G = Y - 0.714 V'
-    - 0.344 U', B = Y + 1.773 U', chroma centred, rounded half to even.
+    ``y`` is [..., H, W], ``u`` and ``v`` [..., ceil(H/2), ceil(W/2)]: each
+    chroma sample covers the 2x2 pixels (2i..2i+1, 2j..2j+1) of its own
+    frame, cropped at an odd edge. The RGB export math of the reference's
+    fragment shader (myyuv_opengl/viewer/frag_yuv.glsl): R = Y + 1.403 V',
+    G = Y - 0.714 V' - 0.344 U', B = Y + 1.773 U', chroma centred, rounded
+    half to even; alpha 255.
     """
-    h, w = y.shape
+    h, w = y.shape[-2:]
 
     def up(c: torch.Tensor) -> torch.Tensor:
-        c2 = c.repeat_interleave(2, 0).repeat_interleave(2, 1)[:h, :w]
-        return c2.to(F32) - 128.0
+        c2 = c.repeat_interleave(2, -2).repeat_interleave(2, -1)
+        return c2[..., :h, :w].to(F32) - 128.0
 
     uu, vv = up(u), up(v)
     yf = y.to(F32)

@@ -19,8 +19,13 @@
 * ``smooth_picture``: the smooth XRGB8888 picture of ``chip_smoke.py``'s
   CLI phase, the frame on which it and ``tools/kernel_ab.py`` time the
   kernels.
+* ``every_colour_bgrx`` / ``every_yuv_triple``: a 4096x4096 BGRX frame that
+  holds each 24-bit colour once, and IYUV planes whose pixels hold each
+  (Y, U, V) triple once: the whole input domain of X1 and X2.
 * ``cuda_ms``: the device time of a call, by CUDA events around calls
   queued behind a busy card, so the host's work is left out;
+  ``card_ran_dry``: whether a streaming driver let the card run out of
+  queued work before it had taken its last frame (a host sync);
   ``host_inclusive_ms``: CUDA events around one call on an idle card, for
   a function that synchronises (the plain decoder), whose time then
   includes the host's work.
@@ -462,6 +467,28 @@ def smooth_picture(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
     return px
 
 
+def every_colour_bgrx(rng: np.random.Generator) -> np.ndarray:
+    """u8 [4096, 4096, 4] BGRX: every 24-bit (B, G, R) once, in random
+    order, with random X bytes."""
+    words = rng.permutation(1 << 24).astype(np.uint32)
+    words |= rng.integers(0, 256, words.size, np.uint32) << 24
+    return words.reshape(4096, 4096).view(np.uint8).reshape(4096, 4096, 4)
+
+
+def every_yuv_triple() -> tuple:
+    """(y [4096, 4096], u, v [2048, 2048]) u8 whose 2^24 pixels, each read
+    with its 2x2 quad's chroma sample, hold every (Y, U, V) once: chroma
+    sample s carries (U, V) = divmod(s // 64, 256) and its quad the Y
+    values 4 (s % 64) + 0..3."""
+    s = np.arange(2048 * 2048).reshape(2048, 2048)
+    pair, k = s // 64, s % 64
+    y = np.empty((4096, 4096), np.uint8)
+    for di in range(2):
+        for dj in range(2):
+            y[di::2, dj::2] = 4 * k + 2 * di + dj
+    return y, (pair >> 8).astype(np.uint8), (pair & 255).astype(np.uint8)
+
+
 def _sleep_cycles_per_ms() -> float:
     """Cycles of ``torch.cuda._sleep`` per ms of device time, from one
     timed sleep."""
@@ -510,6 +537,34 @@ def cuda_ms(fn, reps: int = 7, calls: int = 10) -> float:
                                "before the host had queued the calls")
         times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
+
+
+def card_ran_dry(drive, item, n: int = 16) -> bool:
+    """Whether the card ran out of queued work while ``drive(frames)``
+    took ``n`` copies of ``item`` from the iterable ``frames``. A sleep
+    kernel lasting twice a warm run of ``drive`` (plus 50 ms) is queued
+    first, and before handing over each copy, and after the last, the
+    iterable checks whether the sleep has ended: a driver that
+    synchronises the host before it has taken (and queued) its last frame
+    lets it end."""
+    t0 = time.perf_counter()
+    drive([item] * n)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    cycles = int(_sleep_cycles_per_ms() * (2 * warm_ms + 50.0))
+    slept = torch.cuda.Event()
+    ended = []
+
+    def frames():
+        for _ in range(n):
+            ended.append(slept.query())
+            yield item
+        ended.append(slept.query())
+
+    torch.cuda._sleep(cycles)
+    slept.record()
+    drive(frames())
+    return any(ended)
 
 
 def host_inclusive_ms(fn, reps: int = 7) -> float:

@@ -1,7 +1,9 @@
-"""The CUDA kernels K1-K6 against their plain PyTorch versions on the
-card, and the staged route and batch API against the fused route. Marked
-``gpu``: they skip where no CUDA device is present, and run with
-``python -m pytest tests/test_torch_gpu.py`` on a machine with one.
+"""The CUDA kernels K1-K6, X1 and X2 against their plain PyTorch versions
+on the card, the staged route and batch API against the fused route, and
+the streaming drivers against the frame API. Marked ``gpu``: they skip
+where no CUDA device is present, and run with ``python -m pytest
+tests/test_torch_gpu.py`` on a machine with one (``-k convert`` for X1 and
+X2, ``-k streaming`` for the drivers).
 
 Tolerance: exact equality (bytes, sizes, pixels, error codes)."""
 
@@ -9,10 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from myyuv_tpu_torch.engine import device_stream, pipeline
+from myyuv_tpu_torch.engine import device_stream, pipeline, streaming
 from myyuv_tpu_torch.entropy import decode, encode
 from myyuv_tpu_torch.entropy import device as edev
-from myyuv_tpu_torch.kernels import probe, transform
+from myyuv_tpu_torch.kernels import build, convert, probe, transform
+from myyuv_tpu_torch.kernels import device as kdev
 
 pytestmark = pytest.mark.gpu
 
@@ -409,3 +412,141 @@ def test_staged_route_and_batch_equal_fused_on_card(rng, cuda):
     counted = np.bincount(sym[(sym >= 0) & (sym < batch.NUM_SYMBOLS)],
                           minlength=batch.NUM_SYMBOLS)
     assert np.array_equal(m["symbol_hist"].cpu().numpy(), counted)
+
+
+def _same_conversions(px, planes):
+    """X1 on BGRX ``px`` and X2 on ``planes`` and on X1's planes, each
+    against its plain version."""
+    got = convert.bgrx_to_iyuv(px)
+    for g, p in zip(got, kdev.bgrx_to_iyuv(px)):
+        assert g.is_cuda and torch.equal(g, p)
+    for y, u, v in (got, planes):
+        g = convert.iyuv_to_bgrx(y, u, v)
+        assert g.is_cuda and torch.equal(g, kdev.iyuv_to_bgrx(y, u, v))
+
+
+def test_convert_every_colour_and_every_triple(rng, cuda):
+    """X1 on a frame holding each 24-bit colour once and X2 on planes
+    holding each (Y, U, V) triple once: the whole input domains."""
+    px = torch.from_numpy(probe.every_colour_bgrx(rng)).to(cuda)
+    planes = [torch.from_numpy(p).to(cuda) for p in probe.every_yuv_triple()]
+    _same_conversions(px, planes)
+
+
+def test_convert_batch_of_1080p_frames(rng, cuda):
+    """8 x 1088x1920, as the batch API holds frames: X1 on [8, H, W, 4],
+    X2 on [8, H, W] planes with each frame's own chroma."""
+    b, h, w = 8, 1088, 1920
+    px = torch.from_numpy(rng.integers(0, 256, (b, h, w, 4), np.uint8)
+                          ).to(cuda)
+    planes = [torch.from_numpy(rng.integers(0, 256, s, np.uint8)).to(cuda)
+              for s in ((b, h, w), (b, h // 2, w // 2), (b, h // 2, w // 2))]
+    _same_conversions(px, planes)
+
+
+@pytest.mark.parametrize("lead,h,w", [
+    ((), 15, 17), ((3,), 15, 17), ((2,), 16, 17), ((2,), 15, 16),
+    ((), 1, 1), ((4,), 3, 5), ((2, 3), 34, 66), ((), 6, 10)])
+def test_convert_odd_and_ragged_sizes(rng, cuda, lead, h, w):
+    """X2 on odd H or W, in a batch too (a frame never reads the next
+    frame's chroma), and on W not a multiple of 4 (the byte-wise
+    instance); X1 on the even sizes among them."""
+    hc, wc = (h + 1) // 2, (w + 1) // 2
+    planes = [torch.from_numpy(rng.integers(0, 256, (*lead, *s), np.uint8)
+                               ).to(cuda) for s in ((h, w), (hc, wc),
+                                                    (hc, wc))]
+    got = convert.iyuv_to_bgrx(*planes)
+    assert got.shape == (*lead, h, w, 4)
+    assert torch.equal(got, kdev.iyuv_to_bgrx(*planes))
+    if h % 2 == 0 and w % 2 == 0:
+        px = torch.from_numpy(rng.integers(0, 256, (*lead, h, w, 4),
+                                           np.uint8)).to(cuda)
+        for g, p in zip(convert.bgrx_to_iyuv(px), kdev.bgrx_to_iyuv(px)):
+            assert torch.equal(g, p)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4, 8])
+def test_convert_reads_inputs_off_16_byte_boundaries(rng, cuda, offset):
+    """Inputs that start off the 16-, 8- and 4-byte boundaries the vector
+    accesses need take the byte-wise instance of the same kernel."""
+    h, w = 64, 96
+
+    def at_offset(shape):
+        n = int(np.prod(shape))
+        buf = torch.zeros(n + 32, dtype=torch.uint8, device=cuda)
+        t = buf[offset:offset + n].view(shape)
+        t.copy_(torch.from_numpy(rng.integers(0, 256, shape, np.uint8)))
+        return t
+
+    px = at_offset((h, w, 4))
+    planes = [at_offset(s) for s in ((h, w), (h // 2, w // 2),
+                                     (h // 2, w // 2))]
+    assert px.data_ptr() % 16 and planes[0].data_ptr() % 16
+    _same_conversions(px, planes)
+
+
+def test_convert_counts_its_launches(rng, cuda):
+    px = torch.from_numpy(rng.integers(0, 256, (32, 64, 4), np.uint8)
+                          ).to(cuda)
+    before = dict(build.launches)
+    convert.iyuv_to_bgrx(*convert.bgrx_to_iyuv(px))
+    assert build.launches["bgrx_to_iyuv"] == before["bgrx_to_iyuv"] + 1
+    assert build.launches["iyuv_to_bgrx"] == before["iyuv_to_bgrx"] + 1
+
+
+def _stream_frames(rng, n, h, w):
+    return [[probe.content_kind(rng, probe.KINDS[f % len(probe.KINDS)], s)
+             for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+            for f in range(n)]
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_streaming_drivers_equal_frame_api(rng, cuda, depth):
+    """roundtrip_stream, ingest_stream, preview_stream and compress_stream
+    on the card: flags all True, totals and bytes those of the frame API,
+    and ingest_frame / preview_frame equal to X1 + compress_frame and to
+    decompress_frame + X2."""
+    h, w = 256, 512
+    frames = _stream_frames(rng, 7, h, w)
+    dct, qt = pipeline.codec_params([75] * 3, cuda)
+    dev = [device_stream.to_device(f, cuda) for f in frames]
+    want = [device_stream.compress_frame_to_streams(f, qt, dct)
+            for f in frames]
+    totals = [sum(int(c.size) for _, c in st) for st in want]
+    ok, tot, _ = streaming.roundtrip_stream(dev, qt, dct)
+    assert ok.all() and tot.tolist() == totals
+    px = [convert.iyuv_to_bgrx(*d) for d in dev]
+    ok, tot, _ = streaming.ingest_stream(px, qt, dct)
+    for p, t in zip(px, tot):
+        sizes, content = device_stream.compress_frame(
+            *convert.bgrx_to_iyuv(p), qt, dct)
+        got = device_stream.ingest_frame(p, qt, dct)
+        assert torch.equal(got[0], sizes) and int(got[2]) == t
+        assert torch.equal(got[1][:t], content) and bool(got[3])
+    assert ok.all()
+    sizes, content = device_stream.compress_frame(*dev[0], qt, dct)
+    ok, _ = streaming.preview_stream((content, sizes), qt, dct, h, w, 5)
+    bgrx, pok = device_stream.preview_frame(content, sizes, qt, dct, h, w)
+    assert ok.all() and bool(pok) and torch.equal(
+        bgrx, convert.iyuv_to_bgrx(*device_stream.decompress_frame(
+            content, sizes, qt, dct, h, w)))
+    got = list(streaming.compress_stream(dev, qt, dct, depth=depth))
+    assert len(got) == len(frames)
+    for streams, ws in zip(got, want):
+        for (gs, gc), (ss, sc) in zip(streams, ws):
+            assert np.array_equal(gs, ss) and np.array_equal(gc, sc)
+
+
+def test_streaming_roundtrip_queues_16_frames_without_a_host_sync(rng,
+                                                                   cuda):
+    """roundtrip_stream and ingest_stream take 16 frames while a sleep
+    kernel queued before them still runs: nothing they do before the drain
+    waits for the card."""
+    h, w = 1088, 1920
+    frame = device_stream.to_device(_stream_frames(rng, 1, h, w)[0], cuda)
+    dct, qt = pipeline.codec_params([50] * 3, cuda)
+    assert not probe.card_ran_dry(
+        lambda fs: streaming.roundtrip_stream(fs, qt, dct), frame)
+    px = convert.iyuv_to_bgrx(*frame)
+    assert not probe.card_ran_dry(
+        lambda fs: streaming.ingest_stream(fs, qt, dct), px)

@@ -18,6 +18,10 @@ def test_import_pulls_in_no_jax():
              "import myyuv_tpu_torch.engine.pipeline\n"
              "import myyuv_tpu_torch.entropy.encode\n"
              "import myyuv_tpu_torch.entropy.decode\n"
+             "import myyuv_tpu_torch.kernels.convert\n"
+             "import myyuv_tpu_torch.engine.streaming\n"
+             "import myyuv_tpu_torch.viewer.export\n"
+             "import myyuv_tpu_torch.viewer.terminal\n"
              "bad = [m for m in sys.modules\n"
              "       if m.split('.')[0] in ('jax', 'jaxlib', 'myyuv_tpu')]\n"
              "assert not bad, bad\n"

@@ -1,0 +1,138 @@
+"""The port's streaming drivers (``engine/streaming.py``) on the CPU, where
+they run the plain versions: flags and totals against the frame API, and
+``compress_stream``'s bytes against the frame API and the JAX package.
+
+Tolerance: exact equality (flags, byte counts, stream bytes)."""
+
+import numpy as np
+import pytest
+import torch
+
+from myyuv_tpu import native
+from myyuv_tpu.engine import batch as jax_batch
+from myyuv_tpu.engine import device_stream as jax_ds
+from myyuv_tpu.engine.streaming import FLAG_CHUNK
+from myyuv_tpu_torch.engine import device_stream, pipeline, streaming
+from myyuv_tpu_torch.kernels import convert, probe
+
+H, W = 64, 128
+N_FRAMES = FLAG_CHUNK + 3  # past the JAX package's flag-stack arity
+
+
+def _frames(rng, n):
+    """n frames, the content kinds in turn, so the totals differ."""
+    return [[probe.content_kind(rng, probe.KINDS[f % len(probe.KINDS)], s)
+             for s in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
+            for f in range(n)]
+
+
+@pytest.fixture
+def setup(rng):
+    frames = _frames(rng, N_FRAMES)
+    dct, qt = pipeline.codec_params([75] * 3, "cpu")
+    streams = [device_stream.compress_frame_to_streams(f, qt, dct)
+               for f in frames]
+    totals = [sum(int(c.size) for _, c in st) for st in streams]
+    return frames, [device_stream.to_device(f, "cpu") for f in frames], \
+        streams, totals, qt, dct
+
+
+def test_roundtrip_stream_flags_and_totals(setup):
+    _, dev, _, totals, qt, dct = setup
+    ok, tot, elapsed = streaming.roundtrip_stream(dev, qt, dct)
+    assert ok.dtype == bool and ok.shape == (N_FRAMES,) and ok.all()
+    assert tot.dtype == np.int64 and tot.tolist() == totals
+    assert elapsed > 0
+
+
+def test_ingest_stream_flags_and_totals(setup):
+    """Ingest of each frame's X2 preview: totals those of X1 + the frame
+    API on the same pixels."""
+    _, dev, _, _, qt, dct = setup
+    px = [convert.iyuv_to_bgrx(*d) for d in dev]
+    want = [int(device_stream.compress_frame(
+        *convert.bgrx_to_iyuv(p), qt, dct)[1].numel()) for p in px]
+    ok, tot, _ = streaming.ingest_stream(px, qt, dct)
+    assert ok.shape == (N_FRAMES,) and ok.all()
+    assert tot.dtype == np.int64 and tot.tolist() == want
+
+
+def test_preview_stream_flags(setup):
+    _, dev, _, _, qt, dct = setup
+    sizes, content = device_stream.compress_frame(*dev[0], qt, dct)
+    ok, elapsed = streaming.preview_stream((content, sizes), qt, dct, H, W,
+                                           N_FRAMES)
+    assert ok.shape == (N_FRAMES,) and ok.all() and elapsed > 0
+    bad = content.clone()
+    bad[2] ^= 0x5A                          # block 0's tree size
+    ok, _ = streaming.preview_stream((bad, sizes), qt, dct, H, W, 2)
+    assert not ok.any()
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_compress_stream_bytes_match_frame_api_and_jax(setup, depth):
+    frames, dev, streams, _, qt, dct = setup
+    if not native.available():
+        pytest.skip("native entropy library unavailable")
+    tables = [np.asarray(t) for t in jax_batch.plane_qtables([75] * 3)]
+    got = list(streaming.compress_stream(dev, qt, dct, depth=depth))
+    assert len(got) == N_FRAMES
+    for f, (g, want) in enumerate(zip(got, streams)):
+        jax_want = (jax_ds.compress_frame_to_streams(frames[f], tables)
+                    if f < len(probe.KINDS) else want)
+        for (gs, gc), (ws, wc), (js, jc) in zip(g, want, jax_want):
+            for s, c in ((ws, wc), (js, jc)):
+                np.testing.assert_array_equal(gs, s)
+                np.testing.assert_array_equal(gc, c)
+
+
+def test_sustained_drivers_report_every_window(setup):
+    frames, _, streams, totals, qt, dct = setup
+    fps, ok, total, stats = streaming.sustained_roundtrip_fps(
+        frames[0], qt, dct, n_frames=3, windows=3)
+    assert ok and total == totals[0] and fps in stats["windows_fps"]
+    assert len(stats["windows_fps"]) == 3 and stats["windows_ok"] == [3] * 3
+    ingest_fps, preview_fps, ok = streaming.sustained_pipeline_fps(
+        frames[0], qt, dct, n_frames=3)
+    assert ok and ingest_fps > 0 and preview_fps > 0
+    fps, total, first = streaming.compress_stream_timed(frames[0], qt, dct,
+                                                        n_frames=3)
+    assert fps > 0 and total == totals[0]
+    for (gs, gc), (ws, wc) in zip(first, streams[0]):
+        np.testing.assert_array_equal(gs, ws)
+        np.testing.assert_array_equal(gc, wc)
+
+
+@pytest.mark.parametrize("case", ["random", "short", "full", "err"])
+def test_scatter_chunks_equals_the_mask_select(rng, case):
+    """The sync-free compaction of ``compress_stream`` and ``ingest_frame``
+    against the frame API's mask select, on lanes zero past their sizes:
+    chunks of 0..255 bytes at every byte offset, 255-byte chunks back to
+    back, and err chunks (a size past 255 and a zero lane) that take no
+    room."""
+    n = 2000
+    high = {"random": 256, "short": 12, "full": 256, "err": 256}[case]
+    sizes = (np.full(n, 255) if case == "full"
+             else rng.integers(0, high, n)).astype(np.int32)
+    lanes = rng.integers(0, 256, (n, 256)).astype(np.uint8)
+    if case == "err":
+        sizes[rng.random(n) < 0.05] = 300
+    lanes[np.arange(256)[None, :] >= np.minimum(sizes, 256)[:, None]] = 0
+    lanes[sizes > 255] = 0
+    lanes_t, sizes_t = torch.from_numpy(lanes), torch.from_numpy(sizes)
+    content, total = device_stream.scatter_chunks(lanes_t, sizes_t)
+    live = torch.where(sizes_t < 256, sizes_t, 0)
+    want = device_stream.compact_chunks(lanes_t, live)
+    assert content.numel() == n * 255 and int(total) == int(sizes.sum())
+    assert torch.equal(content[:want.numel()], want)
+
+
+def test_empty_streams():
+    dct, qt = pipeline.codec_params([50] * 3, "cpu")
+    ok, tot, _ = streaming.roundtrip_stream([], qt, dct)
+    assert ok.shape == (0,) and tot.shape == (0,)
+    assert list(streaming.compress_stream([], qt, dct)) == []
+    ok, _ = streaming.preview_stream(
+        (torch.zeros(0, dtype=torch.uint8),
+         torch.zeros(6, dtype=torch.int32)), qt, dct, 16, 16, 0)
+    assert ok.shape == (0,)
