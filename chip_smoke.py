@@ -74,16 +74,34 @@ failure ending the run with a non-zero exit code:
     totals and bytes equal to the frame API's and 32 launches a kernel; the
     round trip and ingest drivers queue 16 frames behind a sleep kernel
     without the card running dry (no host sync); sustained round trip,
-    ingest, preview and ``compress_stream`` fps on the host clock.
+    ingest, preview and ``compress_stream`` fps on the host clock;
+11. the transcode / RD path: (a) the 4K quality fuzz, q 1, 10, 35, 50, 75,
+    90 and 100 on a 4032x3008 frame of each content kind: K1 against its
+    plain version and ``roundtrip_frame``'s planes, total and ok against
+    the plain round trip, then one ``roundtrip_scan`` a quality over the
+    five frames (K = 5, one cached CUDA graph, each call's tables copied
+    in) with totals and oks equal to the frames'; (b) on the CLI frame at
+    q50, the first ``roundtrip_scan`` (K = 8: the capture, the graph's
+    private pool measured around it), then ``sustained_scan_fps`` (K = 8,
+    112 frames) beside ``sustained_roundtrip_fps`` (112 frames), the
+    launches a replay makes, and the scan, its copy of the inputs, its
+    replay, one ``roundtrip_frame``, K1 and K2 decoding K1's lanes in
+    place timed with ``probe.cuda_ms``; (c)
+    ``sweep.quality_sweep`` of the CLI frame at q 10, 30, 50, 70, 90: the
+    K3 + K5 and K1 rate routes give the same bytes, PSNR and bytes rise
+    with q, and the per-quality device rates.
 
 It prints a JSON line with one entry per kernel (its launches on the path
-that drives it, max abs error against its plain version, times on the CLI
-frame and, as ``noise_ms``, on the noise frame, and the
-bound: the larger of the bytes it must move over 3.35 TB/s and its float32
-operations over 67 TFLOP/s, NVIDIA's H100 SXM figures; an encoder's output
-counts the measured stream's chunk bytes, not the 256-byte lanes the port
-writes them into), the card's name and
-power limit as ``nvidia-smi`` gives them, and, last,
+that drives it, and as ``launches_scan`` and ``launches_sweep`` on phase
+11's scans and untimed sweeps, counted from Python, which for the scans
+is the warm body and the capture's record; ``scan_graph_launches``, the
+launches a replay makes, and ``scan_replays``; max abs error against its
+plain version, times on the CLI frame and, as ``noise_ms``, on the noise
+frame, and the bound: the larger of the bytes it must move over 3.35 TB/s
+and its float32 operations over 67 TFLOP/s, NVIDIA's H100 SXM figures; an
+encoder's output counts the measured stream's chunk bytes, not the
+256-byte lanes the port writes them into), the card's name and power limit
+as ``nvidia-smi`` gives them, and, last,
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 ``myyuv_tpu_torch`` package beside it, it exits non-zero and prints no
 result.
@@ -118,6 +136,9 @@ KERNELS = ("dct_encode", "decode_idct", "dct_quantize", "dequantize_idct",
 # differences and 2 products of the chroma; X2 4 products, 4 sums
 CONVERT_FLOP = {"bgrx_to_iyuv": 9, "iyuv_to_bgrx": 8}
 NSTREAM = 32
+FUZZ_QUALITIES = (1, 10, 35, 50, 75, 90, 100)
+KSCAN, NSCAN = 8, 112           # frames a scan, frames a sustained run
+RD_QUALITIES = (10, 30, 50, 70, 90)
 REPLACES = {
     "dct_encode": "myyuv_tpu/entropy/pallas_encode8.py:609",
     "decode_idct": "myyuv_tpu/entropy/pallas_decode8.py:189",
@@ -186,7 +207,7 @@ def main() -> int:
         return 1
     from myyuv_tpu_torch import cli
     from myyuv_tpu_torch.engine import (batch, device_stream, pipeline,
-                                        streaming)
+                                        streaming, sweep)
     from myyuv_tpu_torch.entropy import decode, encode
     from myyuv_tpu_torch.entropy import device as edev
     from myyuv_tpu_torch.formats import bmp, dct_stream, yuv
@@ -786,6 +807,168 @@ def main() -> int:
           f"fps (windows {rt_stats['windows_fps']}), ingest {in_fps} fps, "
           f"preview {pv_fps} fps, compress_stream {cs_fps} fps", flush=True)
 
+    # 11: the transcode / RD path. (a) the 4K quality fuzz: every frame
+    # through roundtrip_frame against the plain round trip, and one scan a
+    # quality over the five kinds against the frames
+    def plain_roundtrip(y, u, v, qt_, dct_):
+        lanes, lsizes, cerr = encode.dct_encode_blocks_plain(y, u, v, qt_,
+                                                             dct_)
+        offs = torch.arange(lsizes.numel(), dtype=torch.int64,
+                            device=dev) * edev.LANE
+        *rec, derr = decode.decode_idct_blocks_plain(
+            lanes.view(-1), lsizes, offs, qt_, dct_, *y.shape)
+        return ((lanes, lsizes, cerr), rec, int(lsizes.sum()),
+                not bool(cerr.any() | derr.any()))
+
+    frng = np.random.default_rng(11)
+    fuzz = [[probe.content_kind(frng, kind, s) for s in
+             ((H4K, W4K), (H4K // 2, W4K // 2), (H4K // 2, W4K // 2))]
+            for kind in probe.KINDS]
+    fstack = [torch.from_numpy(np.stack([f[i] for f in fuzz])).to(dev)
+              for i in range(3)]
+    del fuzz
+    device_stream.clear_scan_graphs()
+    fuzz_oks, fuzz_totals = [], []
+    t0 = time.perf_counter()
+    for q in FUZZ_QUALITIES:
+        dct_q, qt_q = pipeline.codec_params([q] * 3, dev)
+        totals_q, oks_q = [], []
+        for i, kind in enumerate(probe.KINDS):
+            frame_i = [p[i] for p in fstack]
+            tag = f"fuzz {kind} q{q}"
+            want_lanes, want_rec, want_total, want_ok = plain_roundtrip(
+                *frame_i, qt_q, dct_q)
+            same(encode.dct_encode_blocks(*frame_i, qt_q, dct_q), want_lanes,
+                 errs, "dct_encode", f"K1 differs from plain: {tag}")
+            *rec, total, ok = device_stream.roundtrip_frame(*frame_i, qt_q,
+                                                            dct_q)
+            same(rec, want_rec, errs, "decode_idct",
+                 f"roundtrip_frame planes differ from plain: {tag}")
+            check(int(total) == want_total and bool(ok) == want_ok,
+                  f"roundtrip_frame total/ok differ from plain: {tag}")
+            totals_q.append(want_total)
+            oks_q.append(want_ok)
+        s_totals, s_oks = device_stream.roundtrip_scan(*fstack, qt_q, dct_q)
+        check(s_totals.tolist() == totals_q and s_oks.tolist() == oks_q,
+              f"roundtrip_scan q{q} differs from the frames: "
+              f"{s_totals.tolist()} {s_oks.tolist()} against {totals_q} "
+              f"{oks_q}")
+        fuzz_totals.append(totals_q)
+        fuzz_oks += oks_q
+    fuzz_graph = device_stream.scan_graph(len(probe.KINDS), H4K, W4K,
+                                          fstack[0].device)
+    check(fuzz_graph.replays == len(FUZZ_QUALITIES),
+          f"the fuzz scans made {fuzz_graph.replays} graph replays")
+    t_fuzz = time.perf_counter() - t0
+    del fstack
+    device_stream.clear_scan_graphs()
+    print(f"[11a fuzz] {W4K}x{H4K}, q {FUZZ_QUALITIES} x kinds "
+          f"{','.join(probe.KINDS)}: {len(fuzz_oks)} frames, K1 == plain "
+          f"and roundtrip_frame planes, total and ok == the plain round "
+          f"trip (ok False on {fuzz_oks.count(False)}); one roundtrip_scan "
+          f"a quality (K = {len(probe.KINDS)}, {fuzz_graph.replays} "
+          f"replays of one graph, tables copied in each call) == the "
+          f"frames; totals by quality {fuzz_totals}; {t_fuzz:.1f} s; "
+          f"max_abs_err K1 {errs['dct_encode']} K2 {errs['decode_idct']}",
+          flush=True)
+
+    # (b) sustained scans beside the streamed round trip, same frame; the
+    # first scan captures the graph, its private pool measured around it
+    stk = [p.expand(KSCAN, *p.shape).contiguous() for p in planes]
+    graph = device_stream.scan_graph(KSCAN, H4K, W4K, stk[0].device)
+    inputs_mb = sum(t.numel() for t in (graph.ys, graph.us, graph.vs)) / 1e6
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held0 = torch.cuda.memory_reserved(dev)
+    reset_launches()
+    first_totals, first_oks = device_stream.roundtrip_scan(*stk, qt, dct)
+    torch.cuda.empty_cache()
+    pool_mb = (torch.cuda.memory_reserved(dev) - held0) / 1e6
+    check(first_oks.all() and (first_totals == stream.numel()).all(),
+          "the first scan differs from the frame API")
+    check(graph.launches == {"dct_encode": KSCAN, "decode_idct": KSCAN},
+          f"the capture recorded {graph.launches}")
+    sc_fps, sc_ok, sc_total = streaming.sustained_scan_fps(
+        frame_np, qt, dct, n_frames=NSCAN, k=KSCAN)
+    launches["scan"] = dict(build.launches)
+    scan_replays = graph.replays
+    check(sc_ok and sc_total == stream.numel(),
+          "sustained_scan_fps reported a bad frame or another size")
+    # from Python: the warm body before the capture, then the capture's
+    # record; the replays launch from the graph and add nothing
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({k: 1 + n for k, n in graph.launches.items()})
+    check(launches["scan"] == want, f"the scans launched {launches['scan']} "
+          f"from Python")
+    check(scan_replays == 2 + -(-NSCAN // KSCAN),
+          f"the scans made {scan_replays} graph replays")
+    rt_fps2, rt_ok2, rt_total2, _ = streaming.sustained_roundtrip_fps(
+        frame_np, qt, dct, n_frames=NSCAN)
+    check(rt_ok2 and rt_total2 == stream.numel(),
+          "sustained_roundtrip_fps reported a bad frame or another size")
+    lanes1, sizes1, _ = encode.dct_encode_blocks(*planes, qt, dct)
+    in_place = torch.arange(sizes1.numel(), dtype=torch.int64,
+                            device=dev) * edev.LANE
+    scan_ms = {name: probe.cuda_ms(fn, REPS) for name, fn in (
+        ("roundtrip_scan",
+         lambda: device_stream.roundtrip_scan(*stk, qt, dct)),
+        ("copy_in", lambda: graph.load(*stk, qt, dct)),
+        ("replay", graph.replay),
+        ("roundtrip_frame",
+         lambda: device_stream.roundtrip_frame(*planes, qt, dct)),
+        ("K1", lambda: encode.dct_encode_blocks(*planes, qt, dct)),
+        ("K2 on K1's lanes", lambda: decode.decode_idct_blocks(
+            lanes1.view(-1), sizes1, in_place, qt, dct, H4K, W4K)))}
+    graph_launches = graph.launches
+    del stk, lanes1, graph
+    device_stream.clear_scan_graphs()
+    print(f"[11b scan] {card} | {W4K}x{H4K} q50, K = {KSCAN}, {NSCAN} "
+          f"frames, host clock: sustained_scan_fps {sc_fps} fps, "
+          f"sustained_roundtrip_fps {rt_fps2} fps (same frame, same count); "
+          f"launches from Python {launches['scan']} (the warm body and "
+          f"the capture's record), a graph of {graph_launches} replayed "
+          f"{scan_replays} times; the graph's "
+          f"private pool {pool_mb:.1f} MB beside its {inputs_mb:.1f} MB of "
+          f"inputs; CUDA events, calls queued behind a busy card, median of "
+          f"{REPS}: "
+          + ", ".join(f"{k} {t:.4f} ms" for k, t in scan_ms.items())
+          + f" ({scan_ms['roundtrip_scan'] / KSCAN:.4f} ms a frame in a "
+          f"scan)", flush=True)
+
+    # (c) the RD sweep on the CLI frame
+    reset_launches()
+    rd_coder = sweep.quality_sweep(frame_np, RD_QUALITIES, None, device=dev)
+    rd_frame = sweep.quality_sweep(frame_np, RD_QUALITIES, "device",
+                                   device=dev)
+    launches["sweep"] = dict(build.launches)
+    rd_timed = sweep.quality_sweep(frame_np, RD_QUALITIES, "device",
+                                   time_device=True, device=dev)
+    for c, f, t in zip(rd_coder, rd_frame, rd_timed):
+        check(c["compressed_bytes"] == f["compressed_bytes"]
+              == t["compressed_bytes"],
+              f"the sweep's rate routes differ at q{c['quality']}")
+        check({k: v for k, v in t.items() if not k.endswith("_fps")} == f,
+              f"the timed sweep differs at q{c['quality']}")
+        if c["quality"] == 50:
+            check(c["compressed_bytes"] == stream.numel() + n + 3 * 8 + 12,
+                  "the q50 sweep bytes differ from the plain stream's")
+    for key in ("psnr_y_db", "psnr_u_db", "psnr_v_db", "compressed_bytes"):
+        seq = [p[key] for p in rd_coder]
+        check(seq == sorted(seq), f"{key} falls as the quality rises: {seq}")
+    for path, names in (("scan", ("dct_encode", "decode_idct")),
+                        ("sweep", ("dct_encode", "dct_quantize",
+                                   "dequantize_idct", "huffman_encode"))):
+        for name in names:
+            check(launches[path][name] > 0,
+                  f"{name} never launched on the {path} path: "
+                  f"{launches[path]}")
+    print(f"[11c sweep] {card} | {W4K}x{H4K} CLI frame, q {RD_QUALITIES}: "
+          f"K3 + K5 bytes == K1 bytes (q50 == the plain stream's), PSNR "
+          f"and bytes rise with q; launches of the two untimed sweeps "
+          f"{launches['sweep']}; points (fps: encode_frame and "
+          f"roundtrip_frame by probe.cuda_ms, decompress_frame "
+          f"host-inclusive) {json.dumps(rd_timed)}", flush=True)
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"myyuv_tpu_torch/csrc/{name}.cu",
@@ -795,7 +978,11 @@ def main() -> int:
          "ms": times[name][0], "plain_ms": times[name][1],
          "noise_ms": noise_ms[name],
          "bound_ms": times[name][2][0], "bound_by": times[name][2][1],
-         "library_ms": None}
+         "library_ms": None,
+         "launches_scan": launches["scan"][name],
+         "scan_graph_launches": graph_launches.get(name, 0),
+         "scan_replays": scan_replays,
+         "launches_sweep": launches["sweep"][name]}
         for name in KERNELS]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

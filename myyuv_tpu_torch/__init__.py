@@ -10,11 +10,14 @@ Layout (each module is the counterpart of ``myyuv_tpu``'s of that name):
   kernels/  constants, plain PyTorch transforms, the nvcc build of csrc/,
             the K3/K4 and X1/X2 (colour conversion) wrappers
   entropy/  plain PyTorch Huffman coder; K1/K2, K5/K6 kernel wrappers
-  engine/   frame codec on the device, ingest/preview, streaming drivers;
-            codec entry points and registry
+  engine/   frame codec on the device, ingest/preview, streaming drivers,
+            K-frame scans on CUDA graphs, the RD statistics step and
+            quality sweep; codec entry points and registry
   viewer/   BMP export and terminal preview (numpy)
   runtime/  structured errors
   csrc/     the CUDA kernels (K1-K6, X1 bgrx_to_iyuv.cu, X2 iyuv_to_bgrx.cu)
+  tools/    measurement scripts (kernel A/B, the RD sweep)
+  entry.py  ``entry(device)``: the flagship step and example arguments
   cli.py    ``python -m myyuv_tpu_torch`` (-info/-to_yuv/-compress/
             -decompress/-rgb/-preview, --device cuda|cpu)
 """

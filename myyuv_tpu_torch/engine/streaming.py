@@ -2,7 +2,7 @@
 
 Port of ``myyuv_tpu/engine/streaming.py`` (``roundtrip_stream``,
 ``ingest_stream``, ``preview_stream``, ``sustained_roundtrip_fps``,
-``sustained_pipeline_fps``, ``compress_stream``,
+``sustained_scan_fps``, ``sustained_pipeline_fps``, ``compress_stream``,
 ``compress_stream_timed``). Each driver queues every frame's kernels back
 to back and waits for the card only where a result must reach the host:
 
@@ -19,13 +19,16 @@ to back and waits for the card only where a result must reach the host:
   then pulls that frame's ``content[:total]`` on a side stream, so the
   pull does not wait for the frames queued behind it.
 
+``roundtrip_scan_stream`` and ``sustained_scan_fps`` queue K frames a call
+through ``device_stream.roundtrip_scan``: one CUDA graph replay of K
+round trips a call.
+
 Not ported: JAX's ``FLAG_CHUNK`` (one stack at the drain replaces the
 chunked stacks), the cont ladder and its retries (the 256-byte lanes
 always hold a chunk; ``err`` reports the rest, so
-``sustained_roundtrip_fps`` has no ``retried_frames``), and
-``roundtrip_scan`` / ``sustained_scan_fps``, whose counterpart is a CUDA
-graph of K frames. On tensors on the CPU the drivers run the plain
-versions, with no events and no pinned buffers.
+``sustained_roundtrip_fps`` has no ``retried_frames``). On tensors on the
+CPU the drivers run the plain versions, with no events, no pinned buffers
+and no graphs.
 """
 
 from __future__ import annotations
@@ -43,8 +46,8 @@ from . import device_stream as ds
 
 
 def _drain(*flags: List[torch.Tensor]) -> List[np.ndarray]:
-    """Lists of per-frame device scalars -> one int64 numpy array each,
-    by one stack and one d2h."""
+    """Lists of per-frame device scalars (or per-scan [K] tensors) -> one
+    int64 numpy array each, by one stack and one d2h."""
     if not flags[0]:
         return [np.zeros(0, np.int64) for _ in flags]
     both = torch.stack([torch.stack(f).to(torch.int64) for f in flags])
@@ -117,6 +120,37 @@ def sustained_roundtrip_fps(planes_np: Sequence[np.ndarray],
     ok_np, tot_np, elapsed = max(runs,
                                  key=lambda r: (int(r[0].sum()), -r[2]))
     return n_frames / elapsed, bool(ok_np.all()), int(tot_np[0]), stats
+
+
+def roundtrip_scan_stream(stacks: Iterable[Sequence[torch.Tensor]],
+                          qtables: torch.Tensor, dct: torch.Tensor):
+    """Scans of device-resident K-frame stacks (ys [K, H, W], us, vs
+    [K, H/2, W/2]), ``ds.roundtrip_scan`` each, queued back to back with no
+    host sync until the drain. Returns (ok [n, K] bool, totals [n, K] int64
+    compressed bytes, elapsed_s on the host clock)."""
+    oks, totals = [], []
+    t0 = time.perf_counter()
+    for ys, us, vs in stacks:
+        total, ok = ds.roundtrip_scan(ys, us, vs, qtables, dct)
+        oks.append(ok)
+        totals.append(total)
+    ok_np, tot_np = _drain(oks, totals)
+    return ok_np.astype(bool), tot_np, time.perf_counter() - t0
+
+
+def sustained_scan_fps(planes_np: Sequence[np.ndarray],
+                       qtables: torch.Tensor, dct: torch.Tensor,
+                       n_frames: int = 112, k: int = 8):
+    """Upload one frame to ``qtables.device``, stack it K times and run
+    ceil(n_frames / K) scans of the stack (``roundtrip_scan_stream``) after
+    one warm scan, which captures the graph. Returns (fps on the host clock,
+    ok of every timed frame, compressed bytes of the frame)."""
+    frame = ds.to_device(planes_np, qtables.device)
+    stack = [p.expand(k, *p.shape).contiguous() for p in frame]
+    roundtrip_scan_stream([stack], qtables, dct)
+    ok_np, tot_np, elapsed = roundtrip_scan_stream(
+        [stack] * -(-n_frames // k), qtables, dct)
+    return ok_np.size / elapsed, bool(ok_np.all()), int(tot_np[0, 0])
 
 
 def sustained_pipeline_fps(planes_np: Sequence[np.ndarray],

@@ -502,16 +502,19 @@ def _sleep_cycles_per_ms() -> float:
     return cycles / a.elapsed_time(b)
 
 
-def cuda_ms(fn, reps: int = 7, calls: int = 10) -> float:
+def cuda_ms(fn, reps: int = 7, calls: int = 10, tries: int = 5) -> float:
     """Median device time of one fn() in ms over ``reps`` readings, after
     two warm-up calls. A reading is CUDA events around ``calls``
     back-to-back calls, divided by ``calls``, queued behind a sleep kernel
-    that lasts twice as long as the host took to enqueue them (plus 1 ms):
-    the card runs the calls one after another, and the host's work (checks,
-    allocation, launch) is not in the time. Raises RuntimeError if the
-    start event had passed by the time the host had queued the calls: then
-    the card may have waited on the host (a fn that synchronises always
-    does; time it with ``host_inclusive_ms``)."""
+    that lasts three times as long as the host took to enqueue them (plus
+    2 ms): the card runs the calls one after another, and the host's work
+    (checks, allocation, launch) is not in the time. If the start event had
+    passed by the time the host had queued the calls, the card may have
+    waited on the host: the reading is dropped and taken again behind a
+    sleep twice as long, so a pause of the host's own (another process on
+    its cores) costs a reading, not the timer. Raises RuntimeError when
+    ``tries`` readings in a row were so paced: a fn that synchronises lets
+    every sleep end, however long (time it with ``host_inclusive_ms``)."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -520,51 +523,64 @@ def cuda_ms(fn, reps: int = 7, calls: int = 10) -> float:
         fn()
     enqueue_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    cycles = int(_sleep_cycles_per_ms() * (2 * enqueue_ms + 1.0))
+    cycles = int(_sleep_cycles_per_ms() * (3 * enqueue_ms + 2.0))
     times = []
-    for _ in range(reps):
+    paced = 0
+    while len(times) < reps:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
+        torch.cuda._sleep(cycles << paced)
         a.record()
         for _ in range(calls):
             fn()
         b.record()
         host_paced = a.query()
         torch.cuda.synchronize()
-        if host_paced:
+        if not host_paced:
+            times.append(a.elapsed_time(b) / calls)
+            paced = 0
+            continue
+        paced += 1
+        if paced == tries:
             raise RuntimeError("cuda_ms: the card ran out of queued work "
-                               "before the host had queued the calls")
-        times.append(a.elapsed_time(b) / calls)
+                               f"before the host had queued the calls, "
+                               f"{tries} times in a row")
     return statistics.median(times)
 
 
-def card_ran_dry(drive, item, n: int = 16) -> bool:
+def card_ran_dry(drive, item, n: int = 16, tries: int = 3) -> bool:
     """Whether the card ran out of queued work while ``drive(frames)``
     took ``n`` copies of ``item`` from the iterable ``frames``. A sleep
     kernel lasting twice a warm run of ``drive`` (plus 50 ms) is queued
     first, and before handing over each copy, and after the last, the
     iterable checks whether the sleep has ended: a driver that
     synchronises the host before it has taken (and queued) its last frame
-    lets it end."""
+    lets it end. A sleep that ended is tried again, up to ``tries`` times,
+    each twice as long as the last, so a pause of the host's own (another
+    process on its cores) is not taken for a sync; a driver that
+    synchronises lets every sleep end."""
     t0 = time.perf_counter()
     drive([item] * n)
     warm_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     cycles = int(_sleep_cycles_per_ms() * (2 * warm_ms + 50.0))
-    slept = torch.cuda.Event()
-    ended = []
+    for attempt in range(tries):
+        slept = torch.cuda.Event()
+        ended = []
 
-    def frames():
-        for _ in range(n):
+        def frames():
+            for _ in range(n):
+                ended.append(slept.query())
+                yield item
             ended.append(slept.query())
-            yield item
-        ended.append(slept.query())
 
-    torch.cuda._sleep(cycles)
-    slept.record()
-    drive(frames())
-    return any(ended)
+        torch.cuda._sleep(cycles << attempt)
+        slept.record()
+        drive(frames())
+        torch.cuda.synchronize()
+        if not any(ended):
+            return False
+    return True
 
 
 def host_inclusive_ms(fn, reps: int = 7) -> float:

@@ -1,11 +1,17 @@
 """The CUDA kernels K1-K6, X1 and X2 against their plain PyTorch versions
 on the card, the staged route and batch API against the fused route, and
-the streaming drivers against the frame API. Marked ``gpu``: they skip
-where no CUDA device is present, and run with ``python -m pytest
-tests/test_torch_gpu.py`` on a machine with one (``-k convert`` for X1 and
-X2, ``-k streaming`` for the drivers).
+the streaming drivers against the frame API, ``roundtrip_scan``'s CUDA
+graph against the eager round trip and the sweep's two rate routes against
+each other. Marked ``gpu``: they skip where no CUDA device is present, and
+run with ``python -m pytest tests/test_torch_gpu.py`` on a machine with one
+(``-k convert`` for X1 and X2, ``-k streaming`` for the drivers, ``-k
+"scan or sweep"`` for the scan and the sweep).
 
-Tolerance: exact equality (bytes, sizes, pixels, error codes)."""
+Tolerance: exact equality (bytes, sizes, pixels, error codes, totals,
+flags), except the sweep's PSNR on the card against the CPU's, to 1e-3:
+float32 sums taken in another order, rounded to 3 decimals."""
+
+import time
 
 import numpy as np
 import pytest
@@ -291,6 +297,48 @@ def test_timer_leaves_out_host_work(cuda):
         probe.cuda_ms(synchronising)
 
 
+def test_timer_retakes_a_reading_the_host_paused(cuda):
+    """A pause of the host while it queues one reading (another process on
+    its cores) costs that reading, not the timer: it is taken again behind
+    a longer sleep. Calls 13-22 are the first reading."""
+    x = torch.zeros(1, device=cuda)
+    calls = []
+
+    def paused_once():
+        calls.append(None)
+        if len(calls) == 15:
+            time.sleep(0.05)
+        x.add_(1)
+
+    assert probe.cuda_ms(paused_once) < 0.01
+    assert len(calls) > 2 + 10 + 7 * 10
+
+
+def test_card_ran_dry_retakes_a_run_the_host_paused(cuda):
+    """card_ran_dry tells one pause of the host from a sync: a driver that
+    pauses once in its first timed run has not run the card dry; one that
+    synchronises on every frame has."""
+    x = torch.zeros(1, device=cuda)
+    runs = []
+
+    def paused_once(frames):
+        runs.append(None)
+        for i, _ in enumerate(frames):
+            if len(runs) == 2 and i == 1:
+                time.sleep(0.2)
+            x.add_(1)
+        x.item()
+
+    def synchronising(frames):
+        for _ in frames:
+            x.add_(1)
+            x.item()
+
+    assert not probe.card_ran_dry(paused_once, None)
+    assert len(runs) == 3
+    assert probe.card_ran_dry(synchronising, None)
+
+
 def _decoder_frame(sizes, offsets):
     """A 16 x 16m frame's worth of blocks: the family's chunks, then empty
     ones (code 1)."""
@@ -550,3 +598,113 @@ def test_streaming_roundtrip_queues_16_frames_without_a_host_sync(rng,
     px = convert.iyuv_to_bgrx(*frame)
     assert not probe.card_ran_dry(
         lambda fs: streaming.ingest_stream(fs, qt, dct), px)
+
+
+def _scan_stack(frames, dev):
+    return [torch.from_numpy(np.stack([f[i] for f in frames])).to(dev)
+            for i in range(3)]
+
+
+def test_scan_graph_replay_equals_eager_frames(rng, cuda, monkeypatch):
+    """roundtrip_scan on the card: the first call captures one graph of K
+    round trips, recording K launches of K1 and K of K2; every call is one
+    replay of it, with no kernel launched from Python (``build.launch``
+    refuses) and nothing added to the counts; totals and oks equal K eager
+    roundtrip_frame calls, also when the next call brings other frames."""
+    k, h, w = 3, 256, 512
+    dct, qt = pipeline.codec_params([75] * 3, cuda)
+    first, second = (_scan_stack(_stream_frames(rng, k, h, w), cuda)
+                     for _ in range(2))
+    device_stream.clear_scan_graphs()
+    totals, oks = device_stream.roundtrip_scan(*first, qt, dct)
+    graph = device_stream.scan_graph(k, h, w, first[0].device)
+    assert graph.replays == 1
+    assert graph.launches == {"dct_encode": k, "decode_idct": k}
+
+    def eager(ys, us, vs):
+        outs = [device_stream.roundtrip_frame(ys[i], us[i], vs[i], qt, dct)
+                for i in range(k)]
+        return [int(o[3]) for o in outs], [bool(o[4]) for o in outs]
+
+    want_first, want_second = eager(*first), eager(*second)
+    assert (totals.tolist(), oks.tolist()) == want_first
+    assert all(want_first[1]) and all(want_second[1])
+
+    def no_launch(*args):
+        raise AssertionError("a scan launched a kernel from Python")
+
+    before = dict(build.launches)
+    monkeypatch.setattr(build, "launch", no_launch)
+    for stack, want in ((second, want_second), (first, want_first)):
+        totals, oks = device_stream.roundtrip_scan(*stack, qt, dct)
+        assert (totals.tolist(), oks.tolist()) == want
+    assert graph.replays == 3
+    assert build.launches == before
+    device_stream.clear_scan_graphs()
+
+
+def test_scan_graph_reads_each_calls_tables(rng, cuda):
+    """q50 then q90 scans of the same frames back to back on one cached
+    graph: each call's totals are those of roundtrip_frame at its own
+    quality (a graph reading the captured tables would repeat q50's)."""
+    k, h, w = 2, 256, 512
+    stack = _scan_stack(_stream_frames(rng, k, h, w), cuda)
+    device_stream.clear_scan_graphs()
+    seen = []
+    for q in (50, 90, 50):
+        dct, qt = pipeline.codec_params([q] * 3, cuda)
+        totals, oks = device_stream.roundtrip_scan(*stack, qt, dct)
+        want = [int(device_stream.roundtrip_frame(
+            stack[0][i], stack[1][i], stack[2][i], qt, dct)[3])
+            for i in range(k)]
+        assert totals.tolist() == want and oks.all()
+        seen.append(want)
+    assert seen[0] == seen[2] != seen[1]
+    assert device_stream.scan_graph(k, h, w, stack[0].device).replays == 3
+    device_stream.clear_scan_graphs()
+
+
+def test_scan_stream_queues_16_scans_without_a_host_sync(rng, cuda):
+    """roundtrip_scan_stream (the loop of sustained_scan_fps) takes 16
+    scans while a sleep kernel queued before them still runs; then
+    sustained_scan_fps itself reports every frame ok and the frame API's
+    total."""
+    h, w = 1088, 1920
+    frame = _stream_frames(rng, 1, h, w)[0]
+    dct, qt = pipeline.codec_params([50] * 3, cuda)
+    stack = _scan_stack([frame] * 4, cuda)
+    assert not probe.card_ran_dry(
+        lambda stacks: streaming.roundtrip_scan_stream(stacks, qt, dct),
+        stack)
+    fps, ok, total = streaming.sustained_scan_fps(frame, qt, dct,
+                                                  n_frames=16, k=4)
+    sizes, _ = device_stream.compress_frame(
+        *device_stream.to_device(frame, cuda), qt, dct)
+    assert ok and fps > 0 and total == int(sizes.sum())
+    device_stream.clear_scan_graphs()
+
+
+def test_sweep_rate_routes_agree_on_card(rng, cuda):
+    """quality_sweep at 1920x1088 on the card: K3 then K5 and K1 give the
+    same bytes, which the plain versions on the CPU give too; the device
+    rates are there and positive; PSNR and bytes rise with the quality."""
+    from myyuv_tpu_torch.engine import sweep
+    from myyuv_tpu_torch.tools import rd_sweep
+
+    qs = (10, 50, 90)
+    planes = rd_sweep.picture_planes(rng, (1088, 1920), cuda)
+    coder = sweep.quality_sweep(planes, qs, None, device=cuda)
+    frame = sweep.quality_sweep(planes, qs, "device", time_device=True,
+                                device=cuda)
+    plain = sweep.quality_sweep(planes, qs, "device", device="cpu")
+    for c, f, p in zip(coder, frame, plain):
+        assert (c["compressed_bytes"] == f["compressed_bytes"]
+                == p["compressed_bytes"])
+        assert c["psnr_y_db"] == f["psnr_y_db"]
+        assert abs(f["psnr_y_db"] - p["psnr_y_db"]) <= 1e-3 + 1e-9
+        assert all(f[k] > 0 for k in ("device_encode_fps",
+                                      "device_decode_fps",
+                                      "device_roundtrip_fps"))
+    for key in ("psnr_y_db", "compressed_bytes"):
+        seq = [f[key] for f in frame]
+        assert seq == sorted(seq), key

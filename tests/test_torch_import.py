@@ -20,6 +20,9 @@ def test_import_pulls_in_no_jax():
              "import myyuv_tpu_torch.entropy.decode\n"
              "import myyuv_tpu_torch.kernels.convert\n"
              "import myyuv_tpu_torch.engine.streaming\n"
+             "import myyuv_tpu_torch.engine.sweep\n"
+             "import myyuv_tpu_torch.entry\n"
+             "import myyuv_tpu_torch.tools.rd_sweep\n"
              "import myyuv_tpu_torch.viewer.export\n"
              "import myyuv_tpu_torch.viewer.terminal\n"
              "bad = [m for m in sys.modules\n"

@@ -1,9 +1,12 @@
 """The port's streaming drivers (``engine/streaming.py``) on the CPU, where
 they run the plain versions: flags and totals against the frame API, and
-``compress_stream``'s bytes against the frame API and the JAX package.
+``compress_stream``'s bytes against the frame API and the JAX package;
+``device_stream.roundtrip_scan`` against the JAX package's and the frame
+API.
 
 Tolerance: exact equality (flags, byte counts, stream bytes)."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -136,3 +139,64 @@ def test_empty_streams():
         (torch.zeros(0, dtype=torch.uint8),
          torch.zeros(6, dtype=torch.int32)), qt, dct, 16, 16, 0)
     assert ok.shape == (0,)
+
+
+def _stacked(frames):
+    """Frames [(y, u, v)] -> (ys [K, H, W], us, vs [K, H/2, W/2]) tensors."""
+    return [torch.from_numpy(np.stack([f[i] for f in frames]))
+            for i in range(3)]
+
+
+def test_roundtrip_scan_matches_jax_and_frame_api(rng):
+    """K = 2 frames of 16x32 (the JAX package's own scan test size), two
+    content kinds, through the port's and JAX's ``roundtrip_scan``; the
+    port's totals and oks also equal K calls of its ``roundtrip_frame``."""
+    frames = [[probe.content_kind(rng, kind, s)
+               for s in ((16, 32), (8, 16), (8, 16))]
+              for kind in ("gradient", "impulse")]
+    ys, us, vs = _stacked(frames)
+    dct, qt = pipeline.codec_params([50] * 3, "cpu")
+    totals, oks = device_stream.roundtrip_scan(ys, us, vs, qt, dct)
+    assert totals.dtype == torch.int64 and oks.dtype == torch.bool
+    assert totals.shape == oks.shape == (2,)
+    per_frame = [device_stream.roundtrip_frame(ys[i], us[i], vs[i], qt, dct)
+                 for i in range(2)]
+    assert totals.tolist() == [int(f[3]) for f in per_frame]
+    assert oks.tolist() == [bool(f[4]) for f in per_frame] == [True] * 2
+    jtotals, joks = jax_ds.roundtrip_scan(
+        *(jnp.asarray(p.numpy()) for p in (ys, us, vs)),
+        *jax_batch.plane_qtables([50] * 3))
+    assert np.asarray(jtotals).tolist() == totals.tolist()
+    assert np.asarray(joks).tolist() == oks.tolist()
+
+
+def test_roundtrip_scan_checks_its_stacks():
+    dct, qt = pipeline.codec_params([50] * 3, "cpu")
+    ys, us, vs = (torch.zeros(s, dtype=torch.uint8)
+                  for s in ((3, 16, 32), (3, 8, 16), (3, 8, 16)))
+    for bad in ((ys[0], us, vs), (ys, us[:2], vs), (ys, us, vs.float()),
+                (ys[:, :8], us, vs)):
+        with pytest.raises(ValueError):
+            device_stream.roundtrip_scan(*bad, qt, dct)
+    totals, oks = device_stream.roundtrip_scan(ys[:0], us[:0], vs[:0], qt,
+                                               dct)
+    assert totals.shape == oks.shape == (0,)
+
+
+def test_roundtrip_scan_stream_equals_roundtrip_stream(setup):
+    """The frames as scans of K = 3 equal them streamed one by one."""
+    frames, dev, _, totals, qt, dct = setup
+    k = 3
+    stacks = [_stacked(frames[i:i + k])
+              for i in range(0, N_FRAMES - N_FRAMES % k, k)]
+    ok, tot, elapsed = streaming.roundtrip_scan_stream(stacks, qt, dct)
+    assert ok.dtype == bool and ok.shape == (len(stacks), k) and ok.all()
+    assert tot.ravel().tolist() == totals[:len(stacks) * k]
+    assert elapsed > 0
+
+
+def test_sustained_scan_fps_small(setup):
+    frames, _, _, totals, qt, dct = setup
+    fps, ok, total = streaming.sustained_scan_fps(frames[0], qt, dct,
+                                                  n_frames=5, k=2)
+    assert ok and fps > 0 and total == totals[0]
