@@ -5,16 +5,17 @@ Run from the repository root on a machine with a CUDA card::
 
     python3 chip_smoke.py
 
-It builds the eight CUDA kernels from ``myyuv_tpu_torch/csrc`` (nvcc, one
+It builds the fifteen CUDA kernels from ``myyuv_tpu_torch/csrc`` (nvcc, one
 process per source, all at once), then, each phase printing one line and any
 failure ending the run with a non-zero exit code:
 
 1. environment: Python, torch, CUDA and nvcc versions, the card;
-2. build of the eight kernels, timed, with ptxas's registers, stack frame
-   and spills per kernel instance; all eight (the lane-group encoders K1
+2. build of the fifteen kernels, timed, with ptxas's registers, stack frame
+   and spills per kernel instance; all fifteen (the lane-group encoders K1
    and K5, the warp decoders K2 and K6, the group transforms K3 and K4, the
-   colour conversions X1 and X2) must use no local memory (0-byte stack
-   frame, no spills);
+   colour conversions X1 and X2, and T1-T7, the probes of the tools and the
+   decoder's tree stage) must use no local memory (0-byte stack frame, no
+   spills);
 3. on ten 4032x3008 frames (five content kinds: noise, gradient, flat,
    impulse, banded; q50 and q90; the contraction-probe blocks in every
    frame): K1 (csrc/dct_encode.cu), K3 (dct_quantize.cu) and K5
@@ -89,16 +90,37 @@ failure ending the run with a non-zero exit code:
     place timed with ``probe.cuda_ms``; (c)
     ``sweep.quality_sweep`` of the CLI frame at q 10, 30, 50, 70, 90: the
     K3 + K5 and K1 rate routes give the same bytes, PSNR and bytes rise
-    with q, and the per-quality device rates.
+    with q, and the per-quality device rates;
+12. the tool path (``myyuv_tpu_torch/tools/``, T1-T7), counts set to 0 just
+    before and read just after each tool's check runs once on the card
+    (``run``: ``exp_shuffle`` packs and unpacks a 3008x4032 plane through
+    T1, ``exp_bcast`` T2, ``exp_r4lane`` T3's four ops, ``exp_fma`` counts
+    T4's bare and fused forms against the rounded one (bare must equal
+    rounded: ``-fmad=false`` holds), ``exp_r3stage`` T5 on a 4K smooth and
+    a noise frame, ``exp_sublane`` T6 in both layouts, ``check_bitexact``
+    K3, K4, X1, X2 and T7's chain against the host's double-rounded
+    sequence), each holding its T kernel to its plain version bit for bit
+    and returning the largest difference; then T5 also on phase 3's ten
+    streams and on the decoder families, with its codes equal to K6's tree
+    codes (1..4, else 0); the decoders' stage split
+    (``exp_r3stage.stage_split``: T5, K6, K4, K2, and payload = K6 - T5,
+    IDCT = K2 - K6, derived) on the CLI frame and phase 3's noise frame;
+    each T kernel's time beside its plain version's, the PyTorch call that
+    computes it (T1-T4) and its bound (``tools/common.py::times``: each call
+    reads its inputs from device memory, not from the L2).
 
 It prints a JSON line with one entry per kernel (its launches on the path
-that drives it, and as ``launches_scan`` and ``launches_sweep`` on phase
+that drives it -- for T1-T7 the tool path of phase 12, with the entry's
+times summed over a tool's variants (T3's four ops, T4's three forms, T6's
+two layouts) and each variant's under ``variants`` -- and as ``launches_scan`` and ``launches_sweep`` on phase
 11's scans and untimed sweeps, counted from Python, which for the scans
 is the warm body and the capture's record; ``scan_graph_launches``, the
 launches a replay makes, and ``scan_replays``; max abs error against its
 plain version, times on the CLI frame and, as ``noise_ms``, on the noise
 frame, and the bound: the larger of the bytes it must move over 3.35 TB/s
-and its float32 operations over 67 TFLOP/s, NVIDIA's H100 SXM figures; an
+and its float32 operations over 67 TFLOP/s, NVIDIA's H100 SXM figures (T6:
+the integer operations its chains need over the SMs' integer issue rate,
+33.4e12 a second, ``tools/common.py``); an
 encoder's output counts the measured stream's chunk bytes, not the
 256-byte lanes the port writes them into), the card's name and power limit
 as ``nvidia-smi`` gives them, and, last,
@@ -126,12 +148,14 @@ H1K, W1K = 1088, 1920
 BATCH = 8
 QUALITIES = (50, 90)
 REPS = 7
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
-F32_FLOP_PER_S = 67e12          # H100 SXM float32, outside the tensor cores
 DCT_FLOP = 2 * 64 * 15 + 64     # per block: two 8-term chains + (de)quantize
 KERNELS = ("dct_encode", "decode_idct", "dct_quantize", "dequantize_idct",
            "huffman_encode", "huffman_decode", "bgrx_to_iyuv",
            "iyuv_to_bgrx")
+# T1-T7, in the order of the table of TPU kernels (PERF.md)
+PROBES = ("lane_shuffle", "bcast_mul", "lane_probes", "fma_probe",
+          "huffman_tree", "consume_chain", "dct_chain")
+ALL = KERNELS + PROBES
 # f32 operations a pixel: X1 3 products and 2 sums of the luma, 2
 # differences and 2 products of the chroma; X2 4 products, 4 sums
 CONVERT_FLOP = {"bgrx_to_iyuv": 9, "iyuv_to_bgrx": 8}
@@ -148,6 +172,13 @@ REPLACES = {
     "huffman_decode": "myyuv_tpu/entropy/pallas_decode8.py:183+319",
     "bgrx_to_iyuv": "myyuv_tpu/kernels/device.py:232",
     "iyuv_to_bgrx": "myyuv_tpu/kernels/device.py:285",
+    "lane_shuffle": "tools/exp_shuffle.py:91",
+    "bcast_mul": "tools/exp_bcast.py:31",
+    "lane_probes": "tools/exp_r4lane.py:100",
+    "fma_probe": "tools/exp_fma.py:50",
+    "huffman_tree": "tools/exp_r3stage.py:107",
+    "consume_chain": "tools/exp_sublane.py:84",
+    "dct_chain": "tools/check_tpu_bitexact.py:94",
 }
 
 
@@ -158,13 +189,6 @@ class SmokeFailure(RuntimeError):
 def check(cond, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
-
-
-def nvidia_smi() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60, check=True)
-    return r.stdout.strip().splitlines()[0]
 
 
 def host_ms(fn, reps: int = REPS) -> float:
@@ -194,13 +218,6 @@ def same(got, want, errs: dict, name: str, what: str) -> None:
         check(torch.equal(g, w_), what)
 
 
-def bound_ms(nbytes: int, flops: int = 0):
-    """(least time in ms, "bytes" or "operations") on an H100 SXM."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -213,9 +230,11 @@ def main() -> int:
     from myyuv_tpu_torch.formats import bmp, dct_stream, yuv
     from myyuv_tpu_torch.kernels import build, convert, probe, transform
     from myyuv_tpu_torch.kernels import device as kdev
+    from myyuv_tpu_torch.tools import common
+    from myyuv_tpu_torch.tools.common import bound_ms
 
     dev = torch.device("cuda")
-    card = nvidia_smi()
+    card = common.card()
     nvcc = subprocess.run([build.nvcc_path(), "--version"],
                           capture_output=True, text=True, check=True)
     print(f"[1 env] python {sys.version.split()[0]} torch {torch.__version__}"
@@ -229,12 +248,12 @@ def main() -> int:
             build.launches[k] = 0
 
     t0 = time.perf_counter()
-    logs = build.build_all(KERNELS)
-    for name in KERNELS:
+    logs = build.build_all(ALL)
+    for name in ALL:
         build.load(name)
-    print(f"[2 build] {len(KERNELS)} kernels for sm_90a in "
+    print(f"[2 build] {len(ALL)} kernels for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for name in KERNELS:  # one report per kernel instance of the library
+    for name in ALL:  # one report per kernel instance of the library
         log = logs.get(name, "")
         regs = re.findall(r"Used (\d+) registers", log)
         stack = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
@@ -246,7 +265,7 @@ def main() -> int:
         check(all(st == ("0", "0", "0") for st in stack),
               f"{name} uses local memory: {stack}")
 
-    errs = dict.fromkeys(KERNELS, 0)
+    errs = dict.fromkeys(ALL, 0)
     rng = np.random.default_rng(2026)
     probe_blocks = probe.contraction_probe_blocks()
     check(probe_blocks.shape[0] > 0, "no contraction-probe content found")
@@ -307,6 +326,7 @@ def main() -> int:
         same(convert.bgrx_to_iyuv(bgrx), kdev.bgrx_to_iyuv(bgrx), errs,
              "bgrx_to_iyuv", f"X1 differs from plain: {tag}")
 
+    tree_streams = []  # T5's inputs in phase 12
     for kind, q, planes, qt, dct, lanes, sizes, coeffs in streams:
         tag = f"{kind} q{q}"
         stream = device_stream.compact_chunks(lanes, sizes)
@@ -321,6 +341,7 @@ def main() -> int:
         same(k6, decode.decode_blocks_plain(stream, sizes, offsets), errs,
              "huffman_decode", f"K6 differs from plain: {tag}")
         check(torch.equal(k6[0], coeffs), f"K6(K5(K3(x))) != K3(x): {tag}")
+        tree_streams.append((tag, stream, sizes, offsets, k6[1]))
         k4 = transform.dequantize_idct_blocks(k6[0], qt, dct, H4K, W4K)
         same(k4, transform.dequantize_idct_blocks_plain(
             k6[0], qt, dct, H4K, W4K), errs, "dequantize_idct",
@@ -583,7 +604,7 @@ def main() -> int:
     check(launches["main"]["bgrx_to_iyuv"] == 1,
           f"-to_yuv launched X1 {launches['main']['bgrx_to_iyuv']} times")
     for op in ("rgb", "preview"):
-        want = dict.fromkeys(KERNELS, 0)
+        want = dict.fromkeys(ALL, 0)
         want.update(decode_idct=1, iyuv_to_bgrx=1)
         check(launches[op] == want, f"-{op} launched {launches[op]}")
     for name in ("dct_encode", "decode_idct"):
@@ -692,6 +713,7 @@ def main() -> int:
           f"events around calls queued behind a busy card: " + ", ".join(
               f"{name} {t:.4f} ms" for name, t in noise_ms.items()),
           flush=True)
+    noise_planes = nplanes  # phase 12's stage split
     del noise, nplanes, ncoeffs, noise_stream, nstream, noise_runs, npx
 
     def fused_ms(fused):
@@ -754,7 +776,7 @@ def main() -> int:
     del isizes, icontent, pbgrx
     for step, pair in (("ingest_frame", ("bgrx_to_iyuv", "dct_encode")),
                        ("preview_frame", ("decode_idct", "iyuv_to_bgrx"))):
-        want = dict.fromkeys(KERNELS, 0)
+        want = dict.fromkeys(ALL, 0)
         want.update(dict.fromkeys(pair, 1))
         check(launches[step] == want, f"{step} launched {launches[step]}")
 
@@ -774,7 +796,7 @@ def main() -> int:
           "a streaming driver reported a bad frame or dropped one")
     check((tot_r == stream.numel()).all() and (tot_i == stream.numel()).all(),
           "streamed totals differ from the frame API")
-    want = dict.fromkeys(KERNELS, 0)
+    want = dict.fromkeys(ALL, 0)
     want.update(dct_encode=3 * NSTREAM, decode_idct=2 * NSTREAM,
                 bgrx_to_iyuv=NSTREAM, iyuv_to_bgrx=NSTREAM)
     check(launches["streaming"] == want,
@@ -896,7 +918,7 @@ def main() -> int:
           "sustained_scan_fps reported a bad frame or another size")
     # from Python: the warm body before the capture, then the capture's
     # record; the replays launch from the graph and add nothing
-    want = dict.fromkeys(KERNELS, 0)
+    want = dict.fromkeys(ALL, 0)
     want.update({k: 1 + n for k, n in graph.launches.items()})
     check(launches["scan"] == want, f"the scans launched {launches['scan']} "
           f"from Python")
@@ -969,6 +991,123 @@ def main() -> int:
           f"roundtrip_frame by probe.cuda_ms, decompress_frame "
           f"host-inclusive) {json.dumps(rd_timed)}", flush=True)
 
+    # 12: the tool path (T1-T7). Counts from the tools' checks alone, which
+    # hold each T kernel to its plain version on the tools' inputs; T5 is
+    # then held on phase 3's streams and the decoder families too
+    from myyuv_tpu_torch.tools import (check_bitexact, exp_bcast, exp_fma,
+                                       exp_r3stage, exp_r4lane, exp_shuffle,
+                                       exp_sublane)
+    tools = {"lane_shuffle": exp_shuffle, "bcast_mul": exp_bcast,
+             "lane_probes": exp_r4lane, "fma_probe": exp_fma,
+             "huffman_tree": exp_r3stage, "consume_chain": exp_sublane,
+             "dct_chain": check_bitexact}
+    t0 = time.perf_counter()
+    reset_launches()
+    ran = {name: mod.run(dev) for name, mod in tools.items()}
+    torch.cuda.synchronize()
+    launches["tools"] = dict(build.launches)
+    for name in PROBES:
+        check(launches["tools"][name] > 0,
+              f"{name} never launched on the tool path: {launches['tools']}")
+    fma = ran["fma_probe"]
+    check(ran["lane_shuffle"]["pack_exact"]
+          and ran["lane_shuffle"]["unpack_exact"], "exp_shuffle failed")
+    check(ran["bcast_mul"]["exact"], "exp_bcast failed")
+    check(all(ran["lane_probes"]["exact"].values()), "exp_r4lane failed")
+    check(fma["bare_vs_rounded"] == 0 and fma["bare_equals_host"],
+          f"T4: nvcc contracted the bare form under the build flags: {fma}")
+    check(fma["fused_vs_rounded"] > 0 and all(fma["plain_exact"].values()),
+          f"T4 differs from its plain versions: {fma}")
+    check(all(ran["huffman_tree"][f]["exact"]
+              and ran["huffman_tree"][f]["codes_agree"]
+              for f in ("cli", "noise")), "exp_r3stage failed")
+    check(ran["consume_chain"]["exact"]
+          and ran["consume_chain"]["layouts_equal"], "exp_sublane failed")
+    check(not ran["dct_chain"]["failed"],
+          f"check_bitexact failed: {ran['dct_chain']['failed']}")
+
+    for name in PROBES:  # each tool's run held its kernel to its plain version
+        errs[name] = ran[name]["max_abs_err"]
+        check(errs[name] == 0, f"{name} differs from its plain version")
+    for tag, st, sz, offs, k6err in tree_streams:
+        tree = decode.parse_trees(st, sz, offs)
+        same(tree, decode.parse_trees_plain(st, sz, offs), errs,
+             "huffman_tree", f"T5 differs from plain: {tag}")
+        check(exp_r3stage.tree_codes_agree(tree[2], k6err),
+              f"T5's codes differ from K6's: {tag}")
+    for name, arrays in layouts:
+        content, fsizes, foffsets = (torch.from_numpy(a).to(dev)
+                                     for a in arrays)
+        tree = decode.parse_trees(content, fsizes, foffsets)
+        same(tree, decode.parse_trees_plain(content, fsizes, foffsets), errs,
+             "huffman_tree", f"T5 differs from plain on family {name}")
+        check(exp_r3stage.tree_codes_agree(tree[2], decode.decode_blocks(
+            content, fsizes, foffsets)[1]),
+            f"T5's codes differ from K6's on family {name}")
+    t_checks = time.perf_counter() - t0
+    print(f"[12 tool path] T1-T7 through the tools' checks: {W4K}x{H4K} "
+          f"pack/unpack (T1), [64, 256] scale (T2), [512, 8192] lane ops "
+          f"(T3), a * b + c on {exp_fma.N} elements: bare vs rounded "
+          f"{fma['bare_vs_rounded']}, fused vs rounded "
+          f"{fma['fused_vs_rounded']}, bare == host {fma['bare_equals_host']}"
+          f" (T4), T5 on 4K smooth and noise frames, {exp_sublane.NBLOCKS} "
+          f"chains in both layouts (T6), K3/K4/X1/X2 and T7's chain == the "
+          f"host's double-rounded sequence ({ran['dct_chain']['probe_blocks']}"
+          f" contraction-probe blocks); launches {launches['tools']}; each T "
+          f"kernel == plain bit for bit, T5 also on the {len(tree_streams)} "
+          f"phase-3 streams and the decoder families (codes == K6's tree "
+          f"codes); {t_checks:.1f} s; max_abs_err "
+          + ", ".join(f"{k} {errs[k]}" for k in PROBES), flush=True)
+
+    split = {"cli": exp_r3stage.stage_split(planes, qt, dct),
+             "noise": exp_r3stage.stage_split(noise_planes, qt, dct)}
+    for frame, t in split.items():
+        print(f"[12 stage split] {card} | {frame} frame {W4K}x{H4K} q50 "
+              f"({t['stream_bytes']} stream bytes), ms: compress_frame "
+              f"{t['compress_frame_host_incl']:.4f} (host-inclusive) = K1 "
+              f"{t['K1']:.4f} (K3 {t['K3']:.4f} + K5 {t['K5']:.4f} staged) "
+              f"+ compaction {t['compaction_host_incl']:.4f} "
+              f"(host-inclusive); decompress_frame "
+              f"{t['decompress_frame_host_incl']:.4f} (host-inclusive): K2 "
+              f"{t['K2']:.4f} = K6 {t['K6']:.4f} + IDCT "
+              f"{t['derived_idct']:.4f} (derived, K2 - K6); K6 = tree T5 "
+              f"{t['T5']:.4f} (bound {t['T5_row']['bound_ms']:.4f}; its "
+              f"tables' write alone {t['T5_tables_write']:.4f}, so the parse >= "
+              f"{t['derived_tree_parse']:.4f}, derived) + payload "
+              f"{t['derived_payload']:.4f} (derived, K6 - T5); K4 alone "
+              f"{t['K4']:.4f}", flush=True)
+    probe_times = {name: tools[name].times(dev) for name in PROBES
+                   if name != "huffman_tree"}
+    probe_times["huffman_tree"] = {"huffman_tree": split["cli"]["T5_row"]}
+
+    def summed(name):
+        """A T kernel's times, summed over its variants."""
+        parts = {k: v for k, v in probe_times[name].items()
+                 if isinstance(v, dict)}
+        total = {key: sum(p[key] for p in parts.values())
+                 for key in ("ms", "plain_ms", "bound_ms")}
+        lib = [p["library_ms"] for p in parts.values()]
+        total["library_ms"] = None if None in lib else sum(lib)
+        total["bound_by"] = next(iter(parts.values()))["bound_by"]
+        total["variants"] = probe_times[name]
+        return total
+
+    probe_sum = {name: summed(name) for name in PROBES}
+    probe_sum["huffman_tree"]["noise_ms"] = split["noise"]["T5_row"]["ms"]
+    def ms4(t):
+        return "none" if t is None else f"{t:.4f}"
+
+    print(f"[12 times] {card} | CUDA events around calls queued behind a "
+          f"busy card, median of {REPS}, on inputs in device memory, not in "
+          f"the L2 (the plain versions of T5 and T6 host-inclusive): "
+          + "; ".join(
+              f"{name} {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
+              f"library {ms4(t['library_ms'])}, bound {t['bound_ms']:.4f} "
+              f"by {t['bound_by']})" for name, t in probe_sum.items())
+          + f"; T1's pack {probe_times['lane_shuffle']['pack_ms']:.4f} ms, "
+          f"unpack {probe_times['lane_shuffle']['unpack_ms']:.4f} ms",
+          flush=True)
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"myyuv_tpu_torch/csrc/{name}.cu",
@@ -983,8 +1122,14 @@ def main() -> int:
          "scan_graph_launches": graph_launches.get(name, 0),
          "scan_replays": scan_replays,
          "launches_sweep": launches["sweep"][name]}
-        for name in KERNELS]}))
-    print(nvidia_smi())
+        for name in KERNELS] + [
+        {"name": name, "route": "cuda",
+         "source": f"myyuv_tpu_torch/csrc/{name}.cu",
+         "replaces": REPLACES[name],
+         "launches": launches["tools"][name],
+         "max_abs_err": errs[name], **probe_sum[name]}
+        for name in PROBES]}))
+    print(common.card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

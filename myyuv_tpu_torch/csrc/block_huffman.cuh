@@ -1,7 +1,8 @@
 // Canonical Huffman stages of the codec kernels. The encoder half is the
 // stage of K1 (dct_encode.cu) and K5 (huffman_encode.cu), a group of 8 lanes
 // per 8x8 block; the decoder half is the stage of K2 (decode_idct.cu) and K6
-// (huffman_decode.cu), 32 blocks per warp, staged by the warp and its groups
+// (huffman_decode.cu), and its tree stage alone that of T5
+// (huffman_tree.cu), 32 blocks per warp, staged by the warp and its groups
 // of 8 lanes, each block's serial chain on one lane. The fused and the
 // staged kernels call the same functions, so their bytes and error codes
 // cannot drift apart.
@@ -357,7 +358,7 @@ __device__ __forceinline__ void stage_coeff_row(const int16_t* row,
 // registers are indexed by constants only.
 
 constexpr int kDecodeLanes = 8;
-// K2's and K6's CTA: one warp, one block per lane.
+// K2's, K6's and T5's CTA: one warp, one block per lane.
 constexpr int kDecodeBlocks = 32;
 // A chunk staged on its own takes 72 words: at most 65 hold its <= 255
 // bytes (3 more when it starts off a word boundary).
@@ -593,20 +594,21 @@ __device__ __forceinline__ int warp_scan(int v, int me) {
   return v;
 }
 
-// Decode blocks b0 .. b0 + 31 (those < n) of the stream into d. Lane l
-// decodes block b0 + l; passes of the warp stage as many chunks as the
-// buffer holds and table as many trees as the pool holds, and repeat until
-// every block is done (one pass for a typical stream). Returns lane l's
-// block's code (0 or native's 1..8; code 1 past n). Every lane of the warp
-// calls this.
-__device__ __forceinline__ int decode_warp(DecodeWarp& d, const uint8_t* zz,
-                                           const uint8_t* content,
-                                           int64_t content_len,
-                                           const int32_t* sizes,
-                                           const int64_t* offsets, int64_t b0,
-                                           int64_t n) {
-  static_assert(kDecodeLanes == 8 && kDecodeBlocks == 32,
-                "a warp of 4 groups of 8 lanes");
+// Zero the warp's rows of d.coef, then stage the chunks of blocks b0 .. b0 +
+// 31 (those < n) into d.buf, pass by pass: a pass stages as many chunks as
+// the buffer holds (one pass for a typical stream), then every lane of the
+// warp calls body(staged, base, size): staged is true on the lanes whose
+// chunk this pass staged, from byte `base` of d.buf, and size is the lane's
+// chunk size. Passes repeat until every block's chunk has been staged.
+// Every lane of the warp calls this.
+template <class Body>
+__device__ __forceinline__ void stage_passes(DecodeWarp& d,
+                                             const uint8_t* content,
+                                             int64_t content_len,
+                                             const int32_t* sizes,
+                                             const int64_t* offsets,
+                                             int64_t b0, int64_t n,
+                                             Body&& body) {
   const int me = threadIdx.x & 31;
   const bool mine = b0 + me < n;
   const int size = mine ? sizes[b0 + me] : 0;
@@ -621,7 +623,6 @@ __device__ __forceinline__ int decode_warp(DecodeWarp& d, const uint8_t* zz,
   const bool linked =
       size >= 0 && size <= 255 && (me >= last || next == off + size);
   const bool in_order = __all_sync(kWarpMask, linked);
-  int e = 1;
   bool pending = mine;
   while (__any_sync(kWarpMask, pending)) {
     const int first = __ffs(__ballot_sync(kWarpMask, pending)) - 1;
@@ -653,6 +654,29 @@ __device__ __forceinline__ int decode_warp(DecodeWarp& d, const uint8_t* zz,
       base = 4 * kStageWords * (me - first) + chunk_shift(content, off);
     }
     __syncwarp();
+    body(staged, base, size);
+    pending = pending && !staged;
+  }
+}
+
+// Decode blocks b0 .. b0 + 31 (those < n) of the stream into d. Lane l
+// decodes block b0 + l; passes of the warp stage as many chunks as the
+// buffer holds and table as many trees as the pool holds, and repeat until
+// every block is done (one pass for a typical stream). Returns lane l's
+// block's code (0 or native's 1..8; code 1 past n). Every lane of the warp
+// calls this.
+__device__ __forceinline__ int decode_warp(DecodeWarp& d, const uint8_t* zz,
+                                           const uint8_t* content,
+                                           int64_t content_len,
+                                           const int32_t* sizes,
+                                           const int64_t* offsets, int64_t b0,
+                                           int64_t n) {
+  static_assert(kDecodeLanes == 8 && kDecodeBlocks == 32,
+                "a warp of 4 groups of 8 lanes");
+  const int me = threadIdx.x & 31;
+  int e = 1;
+  stage_passes(d, content, content_len, sizes, offsets, b0, n,
+               [&](bool staged, int base, int size) {
     unsigned long long cnt8 = 0;
     if (staged) e = parse_tree(d.buf, base, size, cnt8);
     bool waiting = staged && e == 0;
@@ -667,8 +691,72 @@ __device__ __forceinline__ int decode_warp(DecodeWarp& d, const uint8_t* zz,
       waiting = waiting && !go;
       __syncwarp();
     }
-    pending = pending && !staged;
+  });
+  return e;
+}
+
+// Lane me: the symbols of the valid tree section of the chunk staged from
+// byte `base` of d.buf, with counts cnt8 (parse_tree's), into block me's
+// row of d.coef (zeroed by stage_passes): the first 64 in canonical order
+// (by code length, then as stored within a length, decode_payload's table
+// order), sign-extended from 11 bits.
+__device__ __forceinline__ void tree_symbols(DecodeWarp& d, int me, int base,
+                                             unsigned long long cnt8) {
+  const uint32_t* w = d.buf;
+  const int tree_size = staged_byte(w, base + 2);
+  // the symbols before each length, a byte a length (<= 181: no carry)
+  unsigned long long run = 0;
+  int c_acc = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    run |= (unsigned long long)c_acc << (8 * i);
+    c_acc += int(cnt8 >> (8 * i) & 0xFF);
   }
+  int16_t* row = reinterpret_cast<int16_t*>(d.coef);
+  int pos = 3;
+  while (pos - 3 < tree_size) {
+    const int info = staged_byte(w, base + pos);
+    const int sh = 8 * (info >> 5), cnt = (info & 31) + 1;
+    const int at = int(run >> sh & 0xFF);
+    const int q0 = 8 * (base + pos + 1);
+    for (int k = 0; k < cnt && at + k < 64; ++k) {
+      const int v = int(staged_bits(w, q0 + 11 * k) & 0x7FFu);
+      const int s = at + k;
+      row[2 * coef_word(me, s >> 1) + (s & 1)] =
+          int16_t(v >= 1024 ? v - 2048 : v);
+    }
+    run += (unsigned long long)cnt << sh;
+    pos += 1 + (cnt * 11 + 7) / 8;
+  }
+}
+
+// The tree stage alone for blocks b0 .. b0 + 31 (those < n): lane l parses
+// block b0 + l's tree section into its row of d.coef (tree_symbols) and
+// cnt8 (the count of length L in byte L - 1). Returns 0 or native
+// decode_block's code 1..4 (1 past n); a bad block's cnt8 is 0 and its
+// row partial (the caller stores zeros for it). Every lane of the warp
+// calls this.
+__device__ __forceinline__ int tree_warp(DecodeWarp& d,
+                                         const uint8_t* content,
+                                         int64_t content_len,
+                                         const int32_t* sizes,
+                                         const int64_t* offsets, int64_t b0,
+                                         int64_t n,
+                                         unsigned long long& cnt8) {
+  const int me = threadIdx.x & 31;
+  int e = 1;
+  cnt8 = 0;
+  stage_passes(d, content, content_len, sizes, offsets, b0, n,
+               [&](bool staged, int base, int size) {
+    if (staged) {
+      e = parse_tree(d.buf, base, size, cnt8);
+      if (e == 0)
+        tree_symbols(d, me, base, cnt8);
+      else
+        cnt8 = 0;
+    }
+    __syncwarp();  // a next pass stages over d.buf
+  });
   return e;
 }
 

@@ -3,8 +3,9 @@
 Port of ``myyuv_tpu/entropy/device.py`` (``encode_lanes`` :216,
 ``decode_lanes`` :129) with the byte-level semantics of
 ``myyuv_tpu/native/entropy.cpp`` (``encode_block`` :134, ``decode_block``
-:245). These are the plain versions of the entropy halves of the two CUDA
-kernels; ``entropy/encode.py`` and ``entropy/decode.py`` call them for
+:245). These are the plain versions of the entropy halves of the codec
+kernels, and ``parse_tree_lanes`` that of T5, the decoder's tree stage
+alone; ``entropy/encode.py`` and ``entropy/decode.py`` call them for
 tensors that lie on the CPU, and the chip check holds the kernels against
 them on the card.
 
@@ -201,26 +202,18 @@ def gather_lanes(content: torch.Tensor, sizes: torch.Tensor,
     return torch.where(mask, vals, 0).to(torch.uint8)
 
 
-def decode_lanes(lanes: torch.Tensor, sizes: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[N, 256] u8 lanes (zero beyond each size) + sizes -> (coefficients
-    int16 [N, 64] row-major, err i32 [N]).
+def _byte_at(L: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return L.gather(1, idx.clamp(0, LANE + 7).long()[:, None])[:, 0]
 
-    ``err`` is native ``decode_block``'s code: 1 chunk < 3 bytes, 2
-    sections longer than the chunk, 3 more than 64 symbols of one length,
-    4 tree section size mismatch, 5 payload ends inside a code, 6 bad
-    code, 7 no code of <= 8 bits, 8 trailing bits. A bad block's
-    coefficients are 0.
-    """
-    dev = lanes.device
-    n = lanes.shape[0]
-    # bytes past the lane read as 0, as in the kernel
-    L = torch.nn.functional.pad(lanes.to(I32), (0, 8))
-    sizes = sizes.to(I32)
 
-    def byte_at(idx):
-        return L.gather(1, idx.clamp(0, LANE + 7).long()[:, None])[:, 0]
-
+def _tree_tables(L: torch.Tensor, sizes: torch.Tensor):
+    """The tree stage of the decoder: [N, 264] i32 lane bytes (zero past
+    byte 256) + i32 sizes -> (counts i32 [N, 9] per code length 0..8,
+    symtab i32 [N, 577] (the symbols of length L at L * 64 + 0..63, in
+    stream order), err i32 [N] (0 or native's code 1..4), enc_bits,
+    tree_size)."""
+    dev = L.device
+    n = L.shape[0]
     enc_bits = L[:, 0] | (L[:, 1] << 8)
     tree_size = L[:, 2]
     err = torch.where(sizes < 3, 1, 0).to(I32)
@@ -236,7 +229,7 @@ def decode_lanes(lanes: torch.Tensor, sizes: torch.Tensor
         active = (err == 0) & (pos - 3 < tree_size)
         if not bool(active.any()):
             break
-        info = byte_at(pos)
+        info = _byte_at(L, pos)
         ln = (info >> 5) + 1
         cnt = (info & 31) + 1
         have = counts.gather(1, ln.long()[:, None])[:, 0]
@@ -255,6 +248,54 @@ def decode_lanes(lanes: torch.Tensor, sizes: torch.Tensor
                             torch.where(ok, cnt, 0)[:, None])
         pos = torch.where(active, pos + 1 + (cnt * 11 + 7) // 8, pos)
     err = torch.where((err == 0) & (pos - 3 != tree_size), 4, err)
+    return counts, symtab, err, enc_bits, tree_size
+
+
+def parse_tree_lanes(lanes: torch.Tensor, sizes: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The decoder's tree stage alone: [N, 256] u8 lanes (zero beyond each
+    size) + sizes -> (symbols int16 [N, 64], counts i32 [N, 8], err i32
+    [N]).
+
+    ``symbols`` holds the first 64 symbols of the tree section in
+    canonical order (by code length, then as stored within a length: the
+    order in which canonical codes are assigned, which is the stored order
+    of every encoder's stream), sign-extended from 11 bits, zero past
+    their count; ``counts[:, L - 1]`` the number of codes of length L;
+    ``err`` native ``decode_block``'s code 1..4 for a bad tree, else 0 (a
+    bad payload, codes 5..8, is the payload stage's to find). A bad
+    block's symbols and counts are 0.
+    """
+    L = torch.nn.functional.pad(lanes.to(I32), (0, 8))
+    counts, symtab, err, _, _ = _tree_tables(L, sizes.to(I32))
+    counts = torch.where(err[:, None] != 0, 0, counts[:, 1:])
+    incl = torch.cumsum(counts, dim=1, dtype=I32)
+    k = torch.arange(64, device=lanes.device, dtype=I32)
+    # code length - 1 of canonical symbol k (8: past the count)
+    l0 = (k[None, :, None] >= incl[:, None, :]).sum(dim=2, dtype=I32)
+    start = (incl - counts).gather(1, l0.clamp(max=7).long())
+    idx = (l0 + 1) * 64 + k[None, :] - start
+    syms = symtab.gather(1, idx.clamp(0, 9 * 64 - 1).long())
+    return torch.where(l0 < 8, syms, 0).to(torch.int16), counts, err
+
+
+def decode_lanes(lanes: torch.Tensor, sizes: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[N, 256] u8 lanes (zero beyond each size) + sizes -> (coefficients
+    int16 [N, 64] row-major, err i32 [N]).
+
+    ``err`` is native ``decode_block``'s code: 1 chunk < 3 bytes, 2
+    sections longer than the chunk, 3 more than 64 symbols of one length,
+    4 tree section size mismatch, 5 payload ends inside a code, 6 bad
+    code, 7 no code of <= 8 bits, 8 trailing bits. A bad block's
+    coefficients are 0.
+    """
+    dev = lanes.device
+    n = lanes.shape[0]
+    # bytes past the lane read as 0, as in the kernel
+    L = torch.nn.functional.pad(lanes.to(I32), (0, 8))
+    counts, symtab, err, enc_bits, tree_size = _tree_tables(
+        L, sizes.to(I32))
 
     # canonical decode, one bit at a time (puff.c first/count walk)
     coeffs = torch.zeros((n, 64), dtype=I32, device=dev)
@@ -272,7 +313,7 @@ def decode_lanes(lanes: torch.Tensor, sizes: torch.Tensor
             err = torch.where(out, 5, err)
             step = step & ~out
             p = pbit0 + bitpos
-            bit = (byte_at(p >> 3) >> (p & 7)) & 1
+            bit = (_byte_at(L, p >> 3) >> (p & 7)) & 1
             code = torch.where(step, code | bit, code)
             bitpos = torch.where(step, bitpos + 1, bitpos)
             c = counts[:, ln]

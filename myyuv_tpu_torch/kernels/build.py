@@ -18,7 +18,8 @@ chains with ``__fmul_rn`` / ``__fadd_rn``), and there is no
 (``build_all`` returns the reports).
 
 The wrappers (``kernels/transform.py``, ``kernels/convert.py``,
-``entropy/encode.py``, ``entropy/decode.py``) call ``launch``, which counts every launch in
+``entropy/encode.py``, ``entropy/decode.py`` and the probes of ``tools/``)
+call ``launch``, which counts every launch in
 ``launches``: reset the counts to see which kernels a run went through.
 """
 
@@ -58,6 +59,16 @@ SIGNATURES = {
     "bgrx_to_iyuv": ("myyuv_bgrx_to_iyuv", [_P, _I64, _I64, _P, _P, _P, _P]),
     "iyuv_to_bgrx": ("myyuv_iyuv_to_bgrx",
                      [_P, _P, _P, _I64, _I64, _I64, _P, _P]),
+    # T1-T7, the probes of myyuv_tpu_torch/tools/ and the tree stage
+    "huffman_tree": ("myyuv_huffman_tree",
+                     [_P, _I64, _P, _P, _I64, _P, _P, _P, _P]),
+    "dct_chain": ("myyuv_dct_chain", [_P, _I64, _P, _P, _P]),
+    "fma_probe": ("myyuv_fma_probe", [_P, _P, _P, _I64, _I64, _P, _P]),
+    "lane_shuffle": ("myyuv_lane_shuffle", [_P, _I64, _I64, _I64, _P, _P]),
+    "consume_chain": ("myyuv_consume_chain",
+                      [_P, _I64, _I64, _I64, _I64, _P, _P]),
+    "lane_probes": ("myyuv_lane_probes", [_P, _I64, _I64, _I64, _P, _P]),
+    "bcast_mul": ("myyuv_bcast_mul", [_P, _P, _I64, _I64, _P, _P]),
 }
 
 # kernel launches per kernel name (reset the values to count a run)

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from typing import Sequence, Tuple
 
@@ -37,6 +36,7 @@ import torch
 from myyuv_tpu_torch.engine import sweep
 from myyuv_tpu_torch.engine.pipeline import resolve_device
 from myyuv_tpu_torch.kernels import convert, probe
+from myyuv_tpu_torch.tools import common
 
 QUALITIES = (10, 30, 50, 70, 90)
 RD_SHAPE = (736, 992)
@@ -61,10 +61,7 @@ def run(device="cuda", rd_shape=RD_SHAPE,
     out = {"metric": "rd_device_entropy", "device": (
         torch.cuda.get_device_name(dev) if timed else "cpu")}
     if timed:
-        out["card"] = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip().splitlines()[0]
+        out["card"] = common.card()
     for table, shape, time_device, what in (
             ("rd_points", rd_shape, False, "smooth_picture"),
             ("throughput_4k", throughput_shape, timed,

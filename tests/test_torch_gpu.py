@@ -1,11 +1,12 @@
-"""The CUDA kernels K1-K6, X1 and X2 against their plain PyTorch versions
-on the card, the staged route and batch API against the fused route, and
-the streaming drivers against the frame API, ``roundtrip_scan``'s CUDA
-graph against the eager round trip and the sweep's two rate routes against
-each other. Marked ``gpu``: they skip where no CUDA device is present, and
-run with ``python -m pytest tests/test_torch_gpu.py`` on a machine with one
-(``-k convert`` for X1 and X2, ``-k streaming`` for the drivers, ``-k
-"scan or sweep"`` for the scan and the sweep).
+"""The CUDA kernels K1-K6, X1, X2 and T1-T7 against their plain PyTorch
+versions on the card, the staged route and batch API against the fused
+route, and the streaming drivers against the frame API, ``roundtrip_scan``'s
+CUDA graph against the eager round trip and the sweep's two rate routes
+against each other. Marked ``gpu``: they skip where no CUDA device is
+present, and run with ``python -m pytest tests/test_torch_gpu.py`` on a
+machine with one (``-k convert`` for X1 and X2, ``-k streaming`` for the
+drivers, ``-k "scan or sweep"`` for the scan and the sweep, ``-k "tree or
+probe or lane"`` for T1-T7).
 
 Tolerance: exact equality (bytes, sizes, pixels, error codes, totals,
 flags), except the sweep's PSNR on the card against the CPU's, to 1e-3:
@@ -708,3 +709,154 @@ def test_sweep_rate_routes_agree_on_card(rng, cuda):
     for key in ("psnr_y_db", "compressed_bytes"):
         seq = [f[key] for f in frame]
         assert seq == sorted(seq), key
+
+
+# ---- T1-T7: the probes of myyuv_tpu_torch/tools/ and the tree stage ----
+
+@pytest.mark.parametrize("family", probe.DECODER_FAMILIES)
+def test_tree_stage_families_match_plain(rng, cuda, family):
+    """T5 on each decoder family, with gaps and back to back: symbols,
+    counts and codes identical to the plain version; its codes are K6's
+    where K6 found a bad tree (1..4), else 0."""
+    from myyuv_tpu_torch.tools.exp_r3stage import tree_codes_agree
+    stream = probe.decoder_families(rng)[family]
+    for arrays in (stream, probe.back_to_back(*stream)):
+        content, sizes, offsets = (torch.from_numpy(a).to(cuda)
+                                   for a in arrays)
+        got = decode.parse_trees(content, sizes, offsets)
+        for g, p in zip(got, decode.parse_trees_plain(content, sizes,
+                                                      offsets)):
+            assert g.is_cuda and torch.equal(g, p), family
+        assert tree_codes_agree(got[2], decode.decode_blocks(
+            content, sizes, offsets)[1]), family
+
+
+@pytest.mark.parametrize("q", [1, 50, 90, 100])
+def test_tree_stage_on_frames_matches_plain(rng, cuda, q):
+    """T5 on the streams of 736x992 frames of every content kind."""
+    dct, qt = pipeline.codec_params([q] * 3, cuda)
+    for kind in probe.KINDS:
+        planes = _kind_planes(rng, kind, 736, 992, cuda)
+        sizes, content = device_stream.compress_frame(*planes, qt, dct)
+        offsets = torch.cumsum(sizes, 0, dtype=torch.int64) - sizes
+        got = decode.parse_trees(content, sizes, offsets)
+        for g, p in zip(got, decode.parse_trees_plain(content, sizes,
+                                                      offsets)):
+            assert torch.equal(g, p), kind
+        assert not got[2].any()
+
+
+@pytest.mark.parametrize("shape", [(3, 4), (5, 64), (16, 1024), (2, 8192),
+                                   (64, 4032)])
+def test_lane_shuffle_matches_plain(rng, cuda, shape):
+    """T1 on random perms of 2 to 13 bits, and through the pack and unpack
+    relayouts of a luma plane."""
+    from myyuv_tpu_torch.tools import exp_shuffle as t1
+    r, w = shape
+    p = 1 << (w - 1).bit_length()
+    nbits = p.bit_length() - 1
+    x = torch.from_numpy(rng.integers(-2**31, 2**31, (r, p),
+                                      dtype=np.int64).astype(np.int32))
+    for perm in (tuple(rng.permutation(nbits).tolist()),
+                 t1.pack_perm(nbits) if nbits > 4 else tuple(range(nbits))):
+        got = t1.lane_shuffle(x.to(cuda), perm)
+        assert torch.equal(got.cpu(), t1.lane_shuffle_plain(x, perm))
+    if w % 64 == 0 and r % 8 == 0:
+        plane = torch.from_numpy(rng.integers(0, 256, (r, w),
+                                              np.uint8)).to(cuda)
+        words = t1.pack_plane_fast(plane)
+        assert torch.equal(words.cpu(), t1.pack_plane_fast(plane.cpu()))
+        assert torch.equal(t1.unpack_plane_fast(words, r, w), plane)
+
+
+def test_probe_kernels_match_plain(rng, cuda):
+    """T2, T3, T4, T6 and T7 against their plain versions, bit for bit, at
+    small sizes and at the tools' own."""
+    from myyuv_tpu_torch.tools import (check_bitexact, exp_bcast,
+                                       exp_fma, exp_r4lane, exp_sublane)
+    for rows, cols in ((64, 256), (3, 8), (7, 1000)):
+        x = torch.from_numpy(rng.standard_normal((rows, cols))
+                             .astype(np.float32)).to(cuda)
+        q = torch.from_numpy(rng.standard_normal((rows, 1))
+                             .astype(np.float32)).to(cuda)
+        assert torch.equal(exp_bcast.bcast_mul(x, q),
+                           exp_bcast.bcast_mul_plain(x, q))
+    for rows, cols in ((16, 256), (1, 8), (3, 8200), (512, 8192)):
+        x = torch.from_numpy(rng.integers(-2**31, 2**31, (rows, cols),
+                                          dtype=np.int64)
+                             .astype(np.int32)).to(cuda)
+        for op in exp_r4lane.OPS:
+            assert torch.equal(exp_r4lane.lane_probe(x, op),
+                               exp_r4lane.lane_probe_plain(x, op)), op
+    a, b, c = (torch.from_numpy(v).to(cuda) for v in exp_fma.inputs())
+    for form in exp_fma.FORMS:
+        assert exp_fma.differ(exp_fma.fma_form(a, b, c, form),
+                              exp_fma.fma_form_plain(a, b, c, form)) == 0
+    for nblocks in (1024, 8 * 1001):
+        w1 = exp_sublane.table(cuda, nblocks)
+        w8 = exp_sublane.to_rows8(w1)
+        o1 = exp_sublane.consume_chain(w1, 1)
+        assert torch.equal(o1, exp_sublane.consume_chain_plain(w1, 1))
+        assert torch.equal(exp_sublane.rows8_order(
+            exp_sublane.consume_chain(w8, 8)), o1)
+    for cols in (4, 1024, 1028):
+        x = torch.from_numpy(rng.standard_normal((64, cols))
+                             .astype(np.float32) * 128).to(cuda)
+        cf = torch.from_numpy(rng.standard_normal(8).astype(np.float32)
+                              ).to(cuda)
+        assert torch.equal(check_bitexact.dct_chain(x, cf),
+                           check_bitexact.dct_chain_plain(x, cf))
+
+
+def test_probe_tools_on_the_card(cuda):
+    """Each tool at its own size: the kernels equal their plain versions,
+    bare equals rounded (the build keeps -fmad=false), fused differs, the
+    chain equals the host's double-rounded sequence, both T6 layouts
+    agree, each tool's largest difference from the plain version is 0, and
+    every tool times its kernel, no faster than its bound."""
+    from myyuv_tpu_torch.tools import (check_bitexact, exp_bcast, exp_fma,
+                                       exp_r3stage, exp_r4lane,
+                                       exp_shuffle, exp_sublane)
+    fma = exp_fma.run(cuda)
+    assert fma["bare_vs_rounded"] == 0 and fma["fused_vs_rounded"] > 0
+    assert fma["bare_equals_host"] and all(fma["plain_exact"].values())
+    assert check_bitexact.run(cuda)["failed"] == []
+    assert exp_bcast.run(cuda)["exact"]
+    assert all(exp_r4lane.run(cuda)["exact"].values())
+    sub = exp_sublane.run(cuda)
+    assert sub["exact"] and sub["layouts_equal"]
+    shuffle = exp_shuffle.run(cuda)
+    assert shuffle["pack_exact"] and shuffle["unpack_exact"]
+    stage = exp_r3stage.run(cuda)
+    split = exp_r3stage.times(cuda)
+    for frame in ("cli", "noise"):
+        assert stage[frame]["exact"] and stage[frame]["codes_agree"]
+        assert 0 < split[frame]["T5"] < split[frame]["K2"]
+        row = split[frame]["T5_row"]
+        assert row["ms"] >= row["bound_ms"] > 0
+    assert all(mod.run(cuda)["max_abs_err"] == 0 for mod in (
+        exp_bcast, exp_fma, exp_r4lane, exp_shuffle, exp_sublane,
+        check_bitexact, exp_r3stage))
+    for mod in (exp_bcast, exp_fma, exp_r4lane, exp_shuffle, exp_sublane,
+                check_bitexact):
+        for t in mod.times(cuda).values():
+            assert isinstance(t, float) or t["ms"] >= t["bound_ms"] > 0
+
+
+def test_probe_tools_end_with_an_error_when_a_launch_fails(cuda,
+                                                           monkeypatch):
+    """A kernel that does not launch ends each tool with an error: no tool
+    falls back to the plain version."""
+    from myyuv_tpu_torch.tools import (check_bitexact, exp_bcast, exp_fma,
+                                       exp_r3stage, exp_r4lane,
+                                       exp_shuffle, exp_sublane)
+
+    def refuse(name, *args):
+        raise RuntimeError(f"{name} kernel launch failed: refused")
+
+    monkeypatch.setattr(build, "launch", refuse)
+    for main in (exp_shuffle.main, exp_bcast.main, exp_r4lane.main,
+                 exp_fma.main, exp_r3stage.main, exp_sublane.main,
+                 check_bitexact.main):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            main(["--device", "cuda"])

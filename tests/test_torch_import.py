@@ -23,6 +23,14 @@ def test_import_pulls_in_no_jax():
              "import myyuv_tpu_torch.engine.sweep\n"
              "import myyuv_tpu_torch.entry\n"
              "import myyuv_tpu_torch.tools.rd_sweep\n"
+             "import myyuv_tpu_torch.tools.check_bitexact\n"
+             "import myyuv_tpu_torch.tools.exp_bcast\n"
+             "import myyuv_tpu_torch.tools.exp_fma\n"
+             "import myyuv_tpu_torch.tools.exp_r3stage\n"
+             "import myyuv_tpu_torch.tools.exp_r4lane\n"
+             "import myyuv_tpu_torch.tools.exp_shuffle\n"
+             "import myyuv_tpu_torch.tools.exp_sublane\n"
+             "import myyuv_tpu_torch.tools.kernel_ab\n"
              "import myyuv_tpu_torch.viewer.export\n"
              "import myyuv_tpu_torch.viewer.terminal\n"
              "bad = [m for m in sys.modules\n"
