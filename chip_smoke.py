@@ -107,7 +107,25 @@ failure ending the run with a non-zero exit code:
     IDCT = K2 - K6, derived) on the CLI frame and phase 3's noise frame;
     each T kernel's time beside its plain version's, the PyTorch call that
     computes it (T1-T4) and its bound (``tools/common.py::times``: each call
-    reads its inputs from device memory, not from the L2).
+    reads its inputs from device memory, not from the L2);
+13. the multi-device path, every run with the counts set to 0 just before
+    and read just after: (a) ``compress_frame_sharded`` and
+    ``decompress_frame_sharded`` of the CLI frame and phase 3's noise frame
+    (4032x3008 q50) on meshes of 1, 2, 4 (as (2, 2)) and 8 shards of the
+    card, and on a mesh of every card where there are several: streams
+    equal to ``compress_frame_to_streams``, planes to
+    ``decompress_streams_to_frame``, K1 and K2 launched once a shard; (b)
+    ``compress_batch_sharded`` and ``make_sharded_roundtrip`` on a (4, 2)
+    mesh over 8 x 1920x1088: streams and planes equal to the single-device
+    batch API, the histogram to ``roundtrip_step``'s and the SSE to rtol
+    1e-6; (c) two processes sharing the card in a gloo group (this script
+    with ``--gloo-worker``), each coding 4 of the 8 frames over a (2, 1)
+    mesh: both assemble (b)'s streams; (d) ``entry.dryrun_multichip(8)``;
+    (e) host-clock times of the sharded compress and decompress at 4K over
+    1, 2, 4 and 8 shards beside the single-device functions;
+14. the ``-cube`` viewer: ``-cube -frames 4 -shapes 8 -fly`` at 1000x800
+    through the CLI with ``--device cuda`` and ``--device cpu``, the frames
+    held to a share of 1e-3 differing pixels, and the wall time a frame.
 
 It prints a JSON line with one entry per kernel (its launches on the path
 that drives it -- for T1-T7 the tool path of phase 12, with the entry's
@@ -115,8 +133,9 @@ times summed over a tool's variants (T3's four ops, T4's three forms, T6's
 two layouts) and each variant's under ``variants`` -- and as ``launches_scan`` and ``launches_sweep`` on phase
 11's scans and untimed sweeps, counted from Python, which for the scans
 is the warm body and the capture's record; ``scan_graph_launches``, the
-launches a replay makes, and ``scan_replays``; max abs error against its
-plain version, times on the CLI frame and, as ``noise_ms``, on the noise
+launches a replay makes, and ``scan_replays``; for K1-K4
+``launches_sharded``, counted on phase 13 (a) and (b); max abs error
+against its plain version, times on the CLI frame and, as ``noise_ms``, on the noise
 frame, and the bound: the larger of the bytes it must move over 3.35 TB/s
 and its float32 operations over 67 TFLOP/s, NVIDIA's H100 SXM figures (T6:
 the integer operations its chains need over the SMs' integer issue rate,
@@ -131,8 +150,10 @@ result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -156,6 +177,8 @@ KERNELS = ("dct_encode", "decode_idct", "dct_quantize", "dequantize_idct",
 PROBES = ("lane_shuffle", "bcast_mul", "lane_probes", "fma_probe",
           "huffman_tree", "consume_chain", "dct_chain")
 ALL = KERNELS + PROBES
+# the kernels of the multi-device path (phase 13)
+SHARDED = ("dct_encode", "decode_idct", "dct_quantize", "dequantize_idct")
 # f32 operations a pixel: X1 3 products and 2 sums of the luma, 2
 # differences and 2 products of the chroma; X2 4 products, 4 sums
 CONVERT_FLOP = {"bgrx_to_iyuv": 9, "iyuv_to_bgrx": 8}
@@ -163,6 +186,8 @@ NSTREAM = 32
 FUZZ_QUALITIES = (1, 10, 35, 50, 75, 90, 100)
 KSCAN, NSCAN = 8, 112           # frames a scan, frames a sustained run
 RD_QUALITIES = (10, 30, 50, 70, 90)
+CUBE_FRAMES = 4
+CUBE_SHARE = 1e-3   # share of -cube pixels that may differ, card vs CPU
 REPLACES = {
     "dct_encode": "myyuv_tpu/entropy/pallas_encode8.py:609",
     "decode_idct": "myyuv_tpu/entropy/pallas_decode8.py:189",
@@ -242,10 +267,6 @@ def main() -> int:
           f"{nvcc.stdout.strip().splitlines()[-1]} | "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     print(card, flush=True)
-
-    def reset_launches():
-        for k in build.launches:
-            build.launches[k] = 0
 
     t0 = time.perf_counter()
     logs = build.build_all(ALL)
@@ -1108,6 +1129,12 @@ def main() -> int:
           f"unpack {probe_times['lane_shuffle']['unpack_ms']:.4f} ms",
           flush=True)
 
+    sharded_counts = multi_device(
+        dev, card, {"cli": frame_np,
+                    "noise": [p.cpu().numpy() for p in noise_planes]},
+        stack)
+    cube_viewer(card, px)
+
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"myyuv_tpu_torch/csrc/{name}.cu",
@@ -1121,7 +1148,9 @@ def main() -> int:
          "launches_scan": launches["scan"][name],
          "scan_graph_launches": graph_launches.get(name, 0),
          "scan_replays": scan_replays,
-         "launches_sweep": launches["sweep"][name]}
+         "launches_sweep": launches["sweep"][name],
+         **({"launches_sharded": sharded_counts[name]}
+            if name in SHARDED else {})}
         for name in KERNELS] + [
         {"name": name, "route": "cuda",
          "source": f"myyuv_tpu_torch/csrc/{name}.cu",
@@ -1136,5 +1165,251 @@ def main() -> int:
     return 0
 
 
+def reset_launches() -> None:
+    from myyuv_tpu_torch.kernels import build
+    for k in build.launches:
+        build.launches[k] = 0
+
+
+def multi_device(dev, card: str, frames4k: dict, stack) -> dict:
+    """Phase 13: the multi-device path on meshes of the card ``dev``
+    repeated (and of every card, where there are several), held to the
+    single-device path; ``frames4k`` holds the CLI and noise frames'
+    numpy planes (4032x3008), ``stack`` the 8 x 1920x1088 batch's. Returns
+    the launches of (a) and (b) by kernel."""
+    from myyuv_tpu_torch import entry
+    from myyuv_tpu_torch.engine import batch, device_stream, pipeline
+    from myyuv_tpu_torch.engine import sharded_stream
+    from myyuv_tpu_torch.kernels import build
+    from myyuv_tpu_torch.parallel import mesh as meshlib
+    bt = [torch.from_numpy(p).to(dev) for p in stack]
+    frame_np = frames4k["cli"]
+    dct50, qt50 = pipeline.codec_params([50] * 3, dev)
+    qts50 = list(qt50.cpu().numpy())
+    meshes = {f"{r}x{c}": meshlib.make_mesh((r, c), [dev] * (r * c))
+              for r, c in ((1, 1), (2, 1), (2, 2), (8, 1))}
+    if torch.cuda.device_count() > 1:
+        meshes["cards"] = meshlib.make_mesh()
+    sharded_counts = dict.fromkeys(ALL, 0)
+
+    def counted(fn, want, what):
+        """fn() with the counts set to 0 just before and read just after;
+        each kernel of ``want`` must have launched that many times."""
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(build.launches)
+        for name, n in want.items():
+            check(got[name] == n, f"{what}: {name} launched {got[name]} "
+                  f"times, want {n}")
+        for k, v in got.items():
+            sharded_counts[k] += v
+        return out
+
+    wants = {}
+    for fname, fr in frames4k.items():
+        want = wants[fname] = device_stream.compress_frame_to_streams(
+            fr, qt50, dct50)
+        ref = device_stream.decompress_streams_to_frame(want, qt50, dct50,
+                                                        H4K, W4K)
+        for mname, mesh in meshes.items():
+            tag = f"{fname} frame on the {mname} mesh"
+            got = counted(lambda: sharded_stream.compress_frame_sharded(
+                mesh, fr, qts50), {"dct_encode": mesh.size}, tag)
+            for (gs, gc), (ws, wc) in zip(got, want):
+                check(np.array_equal(gs, ws) and np.array_equal(gc, wc),
+                      f"sharded streams differ: {tag}")
+            rec = counted(lambda: sharded_stream.decompress_frame_sharded(
+                mesh, got, qts50, H4K, W4K), {"decode_idct": mesh.size}, tag)
+            for g, w_ in zip(rec, ref):
+                check(np.array_equal(g, w_), f"sharded planes differ: {tag}")
+    shards = ", ".join(f"{k} ({m.size} shards)" for k, m in meshes.items())
+    print(f"[13a sharded frame] {W4K}x{H4K} q50, CLI and noise frames, "
+          f"meshes {shards}: streams == compress_frame_to_streams, planes == "
+          f"decompress_streams_to_frame, K1 and K2 once a shard", flush=True)
+
+    mesh42 = meshlib.make_mesh((4, 2), [dev] * 8)
+    bframes = counted(lambda: sharded_stream.compress_batch_sharded(
+        mesh42, stack, qts50), {"dct_encode": BATCH * 8}, "batch (4, 2)")
+    bplanes = [counted(lambda: sharded_stream.decompress_frame_sharded(
+        mesh42, bframes[f], qts50, H1K, W1K), {"decode_idct": 8},
+        f"batch frame {f}") for f in range(BATCH)]
+    one = device_stream.compress_batch_to_streams(stack, qt50, dct50)
+    bs, bc = device_stream.compress_batch(*bt, qt50, dct50)
+    ones = device_stream.decompress_batch(bc, bs, qt50, dct50, BATCH, H1K,
+                                          W1K)
+    for f in range(BATCH):
+        for (gs, gc), (ws, wc) in zip(bframes[f], one[f]):
+            check(np.array_equal(gs, ws) and np.array_equal(gc, wc),
+                  f"compress_batch_sharded differs at frame {f}")
+        for g, w_ in zip(bplanes[f], ones):
+            check(np.array_equal(g, w_[f].cpu().numpy()),
+                  f"sharded decode differs at batch frame {f}")
+    step = batch.make_sharded_roundtrip(mesh42)
+    (sy, su, sv), sm = counted(lambda: step(*bt, *qt50, dct50),
+                               {"dct_quantize": 8, "dequantize_idct": 8},
+                               "make_sharded_roundtrip")
+    (uy, uu, uv), um = batch.roundtrip_step(*bt, *qt50, dct50)
+    for g, w_ in zip((sy, su, sv), (uy, uu, uv)):
+        check(torch.equal(g, w_), "make_sharded_roundtrip planes differ")
+    check(torch.equal(sm["symbol_hist"], um["symbol_hist"]),
+          "make_sharded_roundtrip histogram differs")
+    sse_rel = max(abs(float(sm[k]) - float(um[k])) / max(float(um[k]), 1.0)
+                  for k in ("sse_y", "sse_u", "sse_v"))
+    check(sse_rel <= 1e-6, f"sharded SSE off by {sse_rel:.3g} (rtol 1e-6)")
+    print(f"[13b sharded batch] {BATCH} x {W1K}x{H1K} q50 on the (4, 2) "
+          f"mesh: compress_batch_sharded streams == compress_batch_to_streams"
+          f", decompress_frame_sharded planes == decompress_batch; "
+          f"make_sharded_roundtrip planes and histogram == roundtrip_step, "
+          f"SSE within {sse_rel:.3g} (rtol 1e-6: float32 sums shard by "
+          f"shard); launches (a) + (b) {sharded_counts}", flush=True)
+
+    blob = hashlib.sha256(b"".join(bytes(c) + bytes(s) for streams in bframes
+                                   for s, c in streams)).hexdigest()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "batch.npz"
+        np.savez(path, *stack)
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--gloo-worker",
+             str(port), str(rank), str(path), str(dev)],
+            stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for rank in range(2)]
+        outs = []
+        try:
+            for proc in procs:
+                out, err = proc.communicate(timeout=300)
+                check(proc.returncode == 0, f"gloo worker failed: "
+                      f"{err[-3000:]}")
+                outs.append(json.loads(out.strip().splitlines()[-1]))
+        finally:
+            for proc in procs:
+                proc.kill()
+                proc.wait()
+    for o in outs:
+        check(o["sha"] == blob and o["n_frames"] == BATCH,
+              f"process {o['rank']} assembled other streams than (b)")
+        check(o["dct_encode"] == 4 * 2, f"process {o['rank']} launched K1 "
+              f"{o['dct_encode']} times, want 8")
+    print(f"[13c two processes] gloo, {dev} shared, each "
+          f"compress_batch_sharded on frames {[o['local'] for o in outs]} "
+          f"over a (2, 1) mesh: both assemble the {BATCH} frames' streams "
+          f"of (b) (sha256 {blob[:16]}); K1 launches "
+          f"{[o['dct_encode'] for o in outs]}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    dry = entry.dryrun_multichip(8, dev.type)
+    print(f"[13d dryrun_multichip(8)] {dry}", flush=True)
+
+    def sharded_times(mesh):
+        fr = frames4k["cli"]
+        streams = sharded_stream.compress_frame_sharded(mesh, fr, qts50)
+        return (host_ms(lambda: sharded_stream.compress_frame_sharded(
+                    mesh, fr, qts50)),
+                host_ms(lambda: sharded_stream.decompress_frame_sharded(
+                    mesh, streams, qts50, H4K, W4K)))
+
+    single = (host_ms(lambda: device_stream.compress_frame_to_streams(
+                  frame_np, qt50, dct50)),
+              host_ms(lambda: device_stream.decompress_streams_to_frame(
+                  wants["cli"], qt50, dct50, H4K, W4K)))
+    shard_ms = {k: sharded_times(meshes[k])
+                for k in ("1x1", "2x1", "2x2", "8x1")}
+    print(f"[13e times] {card} | host clock, median of {REPS}, CLI frame "
+          f"{W4K}x{H4K} q50, numpy planes to streams and back: single-device "
+          f"compress_frame_to_streams {single[0]:.3f} ms, "
+          f"decompress_streams_to_frame {single[1]:.3f} ms; sharded compress "
+          f"/ decompress on the card repeated: " + ", ".join(
+              f"{k.replace('x', ' x ')} {c:.3f} / {d:.3f} ms"
+              for k, (c, d) in shard_ms.items()), flush=True)
+
+    return sharded_counts
+
+
+def cube_viewer(card: str, px: np.ndarray) -> None:
+    """Phase 14: the -cube viewer at the reference's 1000x800 with the
+    BGRX picture ``px`` as its texture, card against CPU."""
+    from myyuv_tpu_torch import cli
+    from myyuv_tpu_torch.formats import bmp
+    from myyuv_tpu_torch.viewer import cube
+
+    def run_cli(*args):
+        rc = cli.main([str(a) for a in args])
+        check(rc == 0, f"CLI failed: {' '.join(map(str, args))}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        bmp.BMPImage.from_pixels(px).dump(tmp / "t.bmp")
+        cube_s, cube_frames = {}, {}
+        for device in ("cuda", "cuda", "cpu"):  # the first cuda run warms up
+            t0 = time.perf_counter()
+            run_cli(tmp / "t.bmp", "-cube", "-frames", CUBE_FRAMES,
+                    "-shapes", 8, "-fly", "-size", 0, "-o", tmp / device,
+                    "--device", device)
+            cube_s[device] = time.perf_counter() - t0
+            cube_frames[device] = [
+                bmp.BMPImage.load(f).pixels_topdown()
+                for f in sorted((tmp / device).glob("frame_*.bmp"))]
+    check(len(cube_frames["cuda"]) == len(cube_frames["cpu"]) == CUBE_FRAMES,
+          "-cube wrote the wrong number of frames")
+    differ = sum(int((a != b).any(-1).sum())
+                 for a, b in zip(cube_frames["cuda"], cube_frames["cpu"]))
+    total = sum(a.shape[0] * a.shape[1] for a in cube_frames["cpu"])
+    shown = sum(int((a[..., :3] != cube.CLEAR_BGR).any(-1).sum())
+                for a in cube_frames["cpu"])
+    check(shown > 0, "-cube drew no shape")
+    check(differ <= CUBE_SHARE * total, f"-cube: {differ} of {total} pixels "
+          f"differ between the card and the CPU (share {differ / total:.3g}"
+          f" > {CUBE_SHARE})")
+    print(f"[14 cube] {card} | CLI -cube -frames {CUBE_FRAMES} -shapes 8 "
+          f"-fly at 1000x800 ({px.shape[1]}x{px.shape[0]} texture): card vs "
+          f"CPU {differ} of {total} pixels differ (share {differ / total:.3g}, limit "
+          f"{CUBE_SHARE}); {shown} pixels show a shape; wall time a frame, "
+          f"texture load and BMP writes included: cuda "
+          f"{cube_s['cuda'] * 1e3 / CUBE_FRAMES:.1f} ms, cpu "
+          f"{cube_s['cpu'] * 1e3 / CUBE_FRAMES:.1f} ms", flush=True)
+
+
+def gloo_worker(argv) -> int:
+    """One process of phase 13 (c): ``chip_smoke.py --gloo-worker PORT RANK
+    BATCH.npz DEVICE``. Joins a gloo group of two at localhost:PORT, codes
+    its share of the batch's frames with ``compress_batch_sharded`` over a
+    (2, 1) mesh of the parent's card DEVICE at q50, and prints one JSON
+    line: its frames, the sha256 of every frame's gathered streams and its
+    K1 launches."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from myyuv_tpu_torch.engine import pipeline, sharded_stream
+    from myyuv_tpu_torch.kernels import build
+    from myyuv_tpu_torch.parallel import distributed
+    from myyuv_tpu_torch.parallel import mesh as meshlib
+    port, rank, path, dev = argv[0], int(argv[1]), argv[2], argv[3]
+    distributed.initialize(f"localhost:{port}", 2, rank)
+    try:
+        with np.load(path) as z:
+            stack = [z[f"arr_{i}"] for i in range(3)]
+        _, qt = pipeline.codec_params([50] * 3, dev)
+        mesh = meshlib.make_mesh((2, 1), [dev, dev])
+        frames = sharded_stream.compress_batch_sharded(
+            mesh, stack, list(qt.cpu().numpy()))
+        torch.cuda.synchronize()
+        blob = b"".join(bytes(c) + bytes(s) for streams in frames
+                        for s, c in streams)
+        print(json.dumps({
+            "rank": rank, "n_frames": len(frames),
+            "local": list(distributed.local_shard(stack[0].shape[0])),
+            "sha": hashlib.sha256(blob).hexdigest(),
+            "dct_encode": build.launches["dct_encode"]}), flush=True)
+    finally:
+        distributed.shutdown()
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gloo-worker"]:
+        sys.exit(gloo_worker(sys.argv[2:]))
     sys.exit(main())

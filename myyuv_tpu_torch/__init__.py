@@ -12,14 +12,18 @@ Layout (each module is the counterpart of ``myyuv_tpu``'s of that name):
   entropy/  plain PyTorch Huffman coder; K1/K2, K5/K6 kernel wrappers
   engine/   frame codec on the device, ingest/preview, streaming drivers,
             K-frame scans on CUDA graphs, the RD statistics step and
-            quality sweep; codec entry points and registry
-  viewer/   BMP export and terminal preview (numpy)
+            quality sweep; codec entry points and registry; the frame
+            codec and round trip step sharded over a device mesh
+  parallel/ the (data, block) device mesh; the gloo process group
+  viewer/   BMP export and terminal preview (numpy); the spinning-shapes
+            demo (numpy camera, PyTorch rasteriser)
   runtime/  structured errors
   csrc/     the CUDA kernels (K1-K6, X1 bgrx_to_iyuv.cu, X2 iyuv_to_bgrx.cu)
   tools/    measurement scripts (kernel A/B, the RD sweep)
-  entry.py  ``entry(device)``: the flagship step and example arguments
+  entry.py  ``entry(device)``: the flagship step and example arguments;
+            ``dryrun_multichip(n, device)``: the sharded path, checked
   cli.py    ``python -m myyuv_tpu_torch`` (-info/-to_yuv/-compress/
-            -decompress/-rgb/-preview, --device cuda|cpu)
+            -decompress/-rgb/-preview/-cube, --device cuda|cpu)
 """
 
 from .formats.bmp import BMPImage

@@ -1,6 +1,6 @@
 """Command-line interface mirroring the reference ``myyuv_cli``.
 
-Port of ``myyuv_tpu/cli.py`` (all its commands but ``-cube``):
+Port of ``myyuv_tpu/cli.py``, every command:
 
   python -m myyuv_tpu_torch <image> -info
   python -m myyuv_tpu_torch <image.bmp> -to_yuv IYUV [-o out.myyuv]
@@ -8,6 +8,8 @@ Port of ``myyuv_tpu/cli.py`` (all its commands but ``-cube``):
   python -m myyuv_tpu_torch <image.myyuv> -decompress [-o out.myyuv]
   python -m myyuv_tpu_torch <image> -rgb [-o out.bmp]      # RGB export
   python -m myyuv_tpu_torch <image> -preview [-o out.txt]  # terminal preview
+  python -m myyuv_tpu_torch <image> -cube [-frames N] [-size S] [-shapes N]
+      [-force_cube] [-flip_width_height] [-fly] [-o out_dir]  # cube demo
 
 ``--device cuda`` (the default) runs the CUDA kernels, ``--device cpu``
 their plain PyTorch versions; both write the same bytes. Input type is
@@ -29,7 +31,7 @@ from .engine import pipeline
 from .formats.bmp import BMPImage
 from .formats.yuv import Compressions, FourccFormats, YUVImage
 from .runtime.errors import MyYUVError
-from .viewer import export, terminal
+from .viewer import cube, export, terminal
 
 _FORMATS = {"IYUV": FourccFormats.IYUV}
 _COMPRESSIONS = {"DCT": Compressions.DCT}
@@ -126,6 +128,26 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="decode to an RGB .bmp (viewer-equivalent export)")
     g.add_argument("-preview", action="store_true",
                    help="render to ANSI truecolor in the terminal")
+    g.add_argument("-cube", action="store_true",
+                   help="render the spinning-textured-cube demo frames "
+                        "(software analog of myyuv_opengl_spinning_cube)")
+    p.add_argument("-frames", type=int, default=24,
+                   help="frame count for -cube")
+    p.add_argument("-size", type=int, default=512,
+                   help="output resolution for -cube (0 = the reference "
+                        "1000x800 screen)")
+    p.add_argument("-shapes", type=int, default=1, metavar="N",
+                   help="number of shapes, 1..1000, placed without overlap"
+                        " (spinning_cube.cpp:288-312)")
+    p.add_argument("-force_cube", action="store_true",
+                   help="force a cube even for non-square images "
+                        "(spinning_cube main.cpp:20-57)")
+    p.add_argument("-flip_width_height", action="store_true",
+                   help="swap texture width/height for the shape aspect "
+                        "(no-op with -force_cube)")
+    p.add_argument("-fly", action="store_true",
+                   help="drive the fly camera along the scripted path "
+                        "(headless stand-in for WASD/arrows)")
     p.add_argument("-o", "--output", type=Path, default=None)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="'cuda' runs the CUDA kernels (default), 'cpu' "
@@ -154,6 +176,19 @@ def main(argv: Optional[List[str]] = None) -> int:
                 print(f"wrote {args.output}")
             else:
                 print(text)
+            return 0
+
+        if args.cube:
+            tex = _bgrx(args.image, kind, args.device)
+            out = args.output or _default_out(args.image, "", "-cube")
+            with _Timer("cube render"):
+                paths = cube.render_spinning_cube(
+                    tex, out, n_frames=args.frames, out_size=args.size,
+                    shapes=args.shapes, force_cube=args.force_cube,
+                    flip_width_height=args.flip_width_height,
+                    fly_script=(cube.default_fly_script if args.fly
+                                else None), device=args.device)
+            print(f"wrote {len(paths)} frames to {out}/")
             return 0
 
         if args.to_yuv is not None:

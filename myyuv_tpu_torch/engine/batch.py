@@ -8,7 +8,7 @@ inverse transforms are K3 (``kernels/transform.dct_quantize_blocks``) and K4
 on the card for CUDA tensors and their plain versions for CPU tensors. The
 statistics (per-plane squared-error sums, the global 2048-bin symbol
 histogram, the entropy estimate) are PyTorch reductions.
-``make_sharded_roundtrip`` has no counterpart yet (multi-device port).
+``make_sharded_roundtrip`` runs the step over a (data, block) device mesh.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ import torch
 
 from ..kernels import constants, transform
 from ..kernels import device as kdev
+from ..parallel import distributed
+from ..parallel.mesh import Mesh
 from .device_stream import as_one_frame
 from .pipeline import resolve_device
 
@@ -114,14 +116,74 @@ def roundtrip_step(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
         return torch.sum(d * d)
 
     hist = symbol_histogram(coeffs)  # the sum of the three planes'
-    p = hist.to(torch.float32) / torch.clamp(hist.sum(), min=1)
-    entropy_bits = -torch.sum(
-        torch.where(p > 0, p * torch.log2(p), torch.zeros_like(p)))
     metrics = {
         "sse_y": sq_err(y, ry),
         "sse_u": sq_err(u, ru),
         "sse_v": sq_err(v, rv),
         "symbol_hist": hist,
-        "entropy_bits_per_symbol": entropy_bits,
+        "entropy_bits_per_symbol": entropy_bits(hist),
     }
     return (ry, ru, rv), metrics
+
+
+def entropy_bits(hist: torch.Tensor) -> torch.Tensor:
+    """Shannon entropy, in bits a symbol, of a symbol histogram."""
+    p = hist.to(torch.float32) / torch.clamp(hist.sum(), min=1)
+    return -torch.sum(
+        torch.where(p > 0, p * torch.log2(p), torch.zeros_like(p)))
+
+
+def make_sharded_roundtrip(mesh: Mesh):
+    """The round trip step over ``mesh``: ``step(y, u, v, qt_y, qt_u, qt_v,
+    dct=None)`` takes [B, H, W] (+ 2x [B, H/2, W/2]) uint8 planes, as
+    ``roundtrip_step`` does, and returns its planes and metrics.
+
+    Frames split over the ``data`` axis (``distributed.shard_batch``) and
+    each frame's block rows over ``block``; each shard runs
+    ``roundtrip_step`` (K3 + K4 on a CUDA device) on its device. The
+    planes come back in batch order on ``y``'s device. The metrics are the
+    whole batch's, on ``y``'s device too: ``sse_*`` and ``symbol_hist``
+    summed over the shards on the host and then over the processes (gloo),
+    ``entropy_bits_per_symbol`` from the global histogram. The float32 SSE
+    sums are taken shard by shard, so they match the unsharded step's to
+    float32 rounding; planes and histogram are exact.
+
+    The step raises ValueError unless B divides over ``data`` and H is a
+    multiple of 16 times ``block`` (as the JAX package's jit refuses an
+    uneven sharding).
+    """
+    rows, cols = mesh.shape
+
+    def step(y, u, v, qt_y, qt_u, qt_v, dct=None):
+        b, h, w = y.shape
+        if b % rows or h % (16 * cols):
+            raise ValueError(f"[{b}, {h}, {w}] planes do not shard over a "
+                             f"({rows}, {cols}) mesh: B must divide over "
+                             f"data, H be a multiple of {16 * cols}")
+        hs = h // cols
+        parts = [distributed.shard_batch(p, mesh) for p in (y, u, v)]
+        planes, metrics = [], []
+        for i, row in enumerate(mesh.devices):
+            for j, dev in enumerate(row):
+                shard = [p[i][:, j * r:(j + 1) * r].contiguous().to(dev)
+                         for p, r in zip(parts, (hs, hs // 2, hs // 2))]
+                qts = [q.to(dev) for q in (qt_y, qt_u, qt_v)]
+                out, m = roundtrip_step(*shard, *qts,
+                                        None if dct is None else dct.to(dev))
+                planes.append([p.to(y.device) for p in out])
+                metrics.append(m)
+        out = tuple(torch.cat([torch.cat([planes[i * cols + j][k]
+                                          for j in range(cols)], 1)
+                               for i in range(rows)])
+                    for k in range(3))
+        sse = distributed.allreduce_sum(torch.stack(
+            [torch.stack([m[k] for k in ("sse_y", "sse_u", "sse_v")]).cpu()
+             for m in metrics]).sum(0))
+        hist = distributed.allreduce_sum(torch.stack(
+            [m["symbol_hist"].cpu() for m in metrics]).sum(0)).to(torch.int32)
+        sse, hist = sse.to(y.device), hist.to(y.device)
+        return out, {"sse_y": sse[0], "sse_u": sse[1], "sse_v": sse[2],
+                     "symbol_hist": hist,
+                     "entropy_bits_per_symbol": entropy_bits(hist)}
+
+    return step

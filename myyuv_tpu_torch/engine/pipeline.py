@@ -1,8 +1,8 @@
 """Codec entry points: the IYUV DCT codec and the BMP conversion.
 
 Port of ``myyuv_tpu/engine/pipeline.py`` (``compress_dct``,
-``decompress_dct``, ``bmp_to_iyuv``, ``iyuv_to_bgrx``,
-``register_engine_codecs``) plus the two checks of
+``streams_to_compressed``, ``decompress_dct``, ``bmp_to_iyuv``,
+``iyuv_to_bgrx``, ``register_engine_codecs``) plus the two checks of
 ``myyuv_tpu/engine/host_codec.py`` (:19-34). Every entry takes the
 ``device`` it runs on: "cuda" runs the CUDA kernels (K1 and K2 for the
 codec, X1 and X2 for the conversions), "cpu" their plain PyTorch
@@ -88,9 +88,21 @@ def compress_dct(img: yuv.YUVImage, params: bytes,
     qualities = _check_quality(params)
     _check_geometry(img)
     dct, qtables = codec_params(qualities, device)
-    streams = [dct_stream.DCTPlaneStream(sizes, content)
-               for sizes, content in device_stream.compress_frame_to_streams(
-                   img.planes(), qtables, dct)]
+    return streams_to_compressed(
+        img, params,
+        device_stream.compress_frame_to_streams(img.planes(), qtables, dct))
+
+
+def streams_to_compressed(img: yuv.YUVImage, params: bytes,
+                          plane_streams) -> yuv.YUVImage:
+    """Assemble a compressed image from per-plane (chunk sizes, content)
+    pairs: the file's header and payload, as ``compress_dct`` writes them.
+    The single-file step of sharded and multi-process compression
+    (``engine/sharded_stream.py``, ``parallel/distributed.py``)."""
+    _check_quality(params)
+    streams = [dct_stream.DCTPlaneStream(np.asarray(s, np.uint8),
+                                         np.asarray(c, np.uint8))
+               for s, c in plane_streams]
     payload = dct_stream.DCTStream(streams).serialize()
     header = yuv.YUVHeader(
         fourcc_format=img.header.fourcc_format,

@@ -149,9 +149,12 @@ def load(name: str):
 def launch(name: str, device: torch.device, *args) -> None:
     """Launch kernel ``name`` with ``args`` (pointers and sizes) on the
     current stream of CUDA ``device``; raise if the launch was refused;
-    count it."""
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = load(name)(*args, stream)
+    count it. ``device`` is the current CUDA device during the call: the
+    library launches into the runtime's current device, and a stream of
+    another device is an invalid handle there."""
+    fn = load(name)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     launches[name] += 1

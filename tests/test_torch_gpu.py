@@ -6,11 +6,15 @@ against each other. Marked ``gpu``: they skip where no CUDA device is
 present, and run with ``python -m pytest tests/test_torch_gpu.py`` on a
 machine with one (``-k convert`` for X1 and X2, ``-k streaming`` for the
 drivers, ``-k "scan or sweep"`` for the scan and the sweep, ``-k "tree or
-probe or lane"`` for T1-T7).
+probe or lane"`` for T1-T7, ``-k "sharded or card"`` for the multi-device
+path, the second card and the cube).
 
 Tolerance: exact equality (bytes, sizes, pixels, error codes, totals,
 flags), except the sweep's PSNR on the card against the CPU's, to 1e-3:
-float32 sums taken in another order, rounded to 3 decimals."""
+float32 sums taken in another order, rounded to 3 decimals; the sharded
+round trip's SSE to rtol 1e-6 (float32 sums shard by shard); the cube's
+frames on the card and the CPU to a share of 1e-3 differing pixels (edge
+pixels under another order of float32 operations)."""
 
 import time
 
@@ -860,3 +864,88 @@ def test_probe_tools_end_with_an_error_when_a_launch_fails(cuda,
                  check_bitexact.main):
         with pytest.raises(RuntimeError, match="launch failed"):
             main(["--device", "cuda"])
+
+
+def test_k1_launches_on_a_second_card(rng):
+    """``build.launch`` makes the tensor's card current: K1 on cuda:1 while
+    cuda:0 is current equals its plain version."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", 1)
+    planes = [torch.from_numpy(p).to(dev) for p in _frame(rng, 64, 128)]
+    dct, qt = pipeline.codec_params([50] * 3, dev)
+    with torch.cuda.device(0):
+        got = encode.dct_encode_blocks(*planes, qt, dct)
+    torch.cuda.synchronize(dev)
+    for g, p in zip(got, encode.dct_encode_blocks_plain(*planes, qt, dct)):
+        assert g.device == dev and torch.equal(g, p)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 1), (2, 2), (8, 1)])
+@pytest.mark.parametrize("h,w", [(64, 128), (48, 64), (32, 384)])
+def test_sharded_frame_on_a_repeated_card(rng, cuda, shape, h, w):
+    """The sharded frame codec on a mesh of the card repeated: streams and
+    planes equal the single-device frame API's, K1 and K2 launched once a
+    shard."""
+    from myyuv_tpu_torch.engine import sharded_stream
+    from myyuv_tpu_torch.parallel import mesh as meshlib
+    n = shape[0] * shape[1]
+    mesh = meshlib.make_mesh(shape, [cuda] * n)
+    planes = [p.copy() for p in _frame(rng, h, w)]
+    dct, qt = pipeline.codec_params([50] * 3, cuda)
+    qts = list(qt.cpu().numpy())
+    before = dict(build.launches)
+    streams = sharded_stream.compress_frame_sharded(mesh, planes, qts)
+    assert build.launches["dct_encode"] - before["dct_encode"] == n
+    want = device_stream.compress_frame_to_streams(planes, qt, dct)
+    for (gs, gc), (ws, wc) in zip(streams, want):
+        assert np.array_equal(gs, ws) and np.array_equal(gc, wc)
+    before = dict(build.launches)
+    got = sharded_stream.decompress_frame_sharded(mesh, streams, qts, h, w)
+    assert build.launches["decode_idct"] - before["decode_idct"] == n
+    ref = device_stream.decompress_streams_to_frame(want, qt, dct, h, w)
+    for g, r in zip(got, ref):
+        assert np.array_equal(g, r)
+
+
+def test_sharded_roundtrip_and_dryrun_on_the_card(rng, cuda):
+    from myyuv_tpu_torch import entry
+    from myyuv_tpu_torch.engine import batch
+    from myyuv_tpu_torch.parallel import mesh as meshlib
+    b, h, w = 4, 64, 128
+    y, u, v = (torch.from_numpy(rng.integers(0, 256, s, np.uint8)).to(cuda)
+               for s in ((b, h, w), (b, h // 2, w // 2), (b, h // 2, w // 2)))
+    qts = batch.plane_qtables([50, 60, 70], cuda)
+    step = batch.make_sharded_roundtrip(meshlib.make_mesh((2, 2), [cuda] * 4))
+    got, m = step(y, u, v, *qts)
+    want, wm = batch.roundtrip_step(y, u, v, *qts)
+    for g, p in zip(got, want):
+        assert g.is_cuda and torch.equal(g, p)
+    assert torch.equal(m["symbol_hist"], wm["symbol_hist"])
+    for k in ("sse_y", "sse_u", "sse_v"):
+        assert torch.isclose(m[k], wm[k], rtol=1e-6, atol=0)
+    assert entry.dryrun_multichip(8)["q95_largest_chunk"] > 64
+
+
+def test_cube_on_the_card_matches_the_cpu(cuda):
+    """render_scene on the card against the CPU, to the share of differing
+    pixels test_torch_cube.py holds the CPU to against the JAX package."""
+    from myyuv_tpu_torch.viewer import cube
+    rng = np.random.default_rng(11)
+    tex = rng.integers(0, 256, (96, 128, 4), np.uint8)
+    verts, tris, uvs = cube.shape_geometry(128, 96)
+    pos = cube.generate_shape_positions(8, np.random.default_rng(0))
+    cam = cube.Camera()
+    r = cube.generation_radius(8)
+    cam.pos = np.array([r * 2.5 + 3, 0, r * 2.5 + 3], np.float32)
+    cam.yaw = -135.0
+    cam.update()
+    h, w = 800, 1000
+    args = (tex, verts, tris, uvs, pos, np.full(8, 30.0, np.float32),
+            cam.view(), cube.perspective(aspect=w / h))
+    frames = [cube.render_scene(*(torch.from_numpy(np.ascontiguousarray(a))
+                                  .to(d) for a in args), h, w).cpu()
+              for d in (cuda, torch.device("cpu"))]
+    share = float((frames[0] != frames[1]).any(-1).float().mean())
+    print(f"cube card vs CPU: share of differing pixels {share:.3g}")
+    assert share <= 1e-3

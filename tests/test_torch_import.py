@@ -22,6 +22,10 @@ def test_import_pulls_in_no_jax():
              "import myyuv_tpu_torch.engine.streaming\n"
              "import myyuv_tpu_torch.engine.sweep\n"
              "import myyuv_tpu_torch.entry\n"
+             "import myyuv_tpu_torch.engine.sharded_stream\n"
+             "import myyuv_tpu_torch.parallel.mesh\n"
+             "import myyuv_tpu_torch.parallel.distributed\n"
+             "import myyuv_tpu_torch.viewer.cube\n"
              "import myyuv_tpu_torch.tools.rd_sweep\n"
              "import myyuv_tpu_torch.tools.check_bitexact\n"
              "import myyuv_tpu_torch.tools.exp_bcast\n"
