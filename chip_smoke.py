@@ -5,17 +5,17 @@ Run from the repository root on a machine with a CUDA card::
 
     python3 chip_smoke.py
 
-It builds the fifteen CUDA kernels from ``myyuv_tpu_torch/csrc`` (nvcc, one
+It builds the seventeen CUDA kernels from ``myyuv_tpu_torch/csrc`` (nvcc, one
 process per source, all at once), then, each phase printing one line and any
 failure ending the run with a non-zero exit code:
 
 1. environment: Python, torch, CUDA and nvcc versions, the card;
-2. build of the fifteen kernels, timed, with ptxas's registers, stack frame
-   and spills per kernel instance; all fifteen (the lane-group encoders K1
-   and K5, the warp decoders K2 and K6, the group transforms K3 and K4, the
-   colour conversions X1 and X2, and T1-T7, the probes of the tools and the
-   decoder's tree stage) must use no local memory (0-byte stack frame, no
-   spills);
+2. build of the seventeen kernels, timed, with ptxas's registers, stack
+   frame and spills per kernel instance; all seventeen (the lane-group
+   encoders K1 and K5, the warp decoders K2 and K6, the group transforms K3
+   and K4 and their fast instances F1 and F2, the colour conversions X1 and
+   X2, and T1-T7, the probes of the tools and the decoder's tree stage) must
+   use no local memory (0-byte stack frame, no spills);
 3. on ten 4032x3008 frames (five content kinds: noise, gradient, flat,
    impulse, banded; q50 and q90; the contraction-probe blocks in every
    frame): K1 (csrc/dct_encode.cu), K3 (dct_quantize.cu) and K5
@@ -125,11 +125,34 @@ failure ending the run with a non-zero exit code:
     1, 2, 4 and 8 shards beside the single-device functions;
 14. the ``-cube`` viewer: ``-cube -frames 4 -shapes 8 -fly`` at 1000x800
     through the CLI with ``--device cuda`` and ``--device cpu``, the frames
-    held to a share of 1e-3 differing pixels, and the wall time a frame.
+    held to a share of 1e-3 differing pixels, and the wall time a frame;
+15. ``precision="fast"`` (F1 ``fast_dct_quantize.cu``, F2
+    ``fast_dequantize_idct.cu``): (a) F1 and F2 on the CLI and noise 4K
+    frames at q 10, 50 and 90 equal to their plain versions (the same FMA
+    chains) and within +-1 of K3 / K4 (on noise, shares differing <= 1e-3
+    for coefficients, <= 1e-4 for pixels), and the plain F1 identical with
+    ``allow_tf32`` True and False; (c)
+    the fast main path, ``compress_dct`` and ``decompress_dct`` with
+    ``precision="fast"`` of the CLI image at q 10, 50, 90 (counts set to 0
+    before the q50 pair and read after: F1, K5, K6, F2 once each, nothing
+    else), the file's coefficients equal to plain F1's and its pixels to
+    plain F2 of them, PSNR within 0.05 dB of exact; (d) the fast
+    ``roundtrip_batch`` on 8 x 1920x1088 equal to F2(F1(x)) and to
+    ``roundtrip_step``'s; (e) a fast ``roundtrip_scan`` at K = 8 (a graph
+    of 8 launches of each of F1, K5, K6, F2); (f) the fast sweep (both rate
+    routes equal, PSNR within 0.05 dB of the exact sweep); (g)
+    ``compress_frame_sharded`` / ``decompress_frame_sharded`` on two shards
+    of the card equal to the frame API; (h) F1 and F2 timed beside K3 and
+    K4, their plain versions and the ``torch.matmul`` formulation with TF32
+    off (the ``library_ms`` of the two entries), and the fast routes beside
+    the exact ones on the host clock.
 
 It prints a JSON line with one entry per kernel (its launches on the path
-that drives it -- for T1-T7 the tool path of phase 12, with the entry's
-times summed over a tool's variants (T3's four ops, T4's three forms, T6's
+that drives it -- for F1 and F2 phase 15 (c)'s q50 pair, with
+``launches_batch``, ``launches_sweep`` and ``launches_sharded`` from (d),
+(f) and (g), ``share_differing_from_exact`` (from K3 / K4) from (a) and
+``library_ms`` the ``torch.matmul`` formulation; for T1-T7 the tool path
+of phase 12, with the entry's times summed over a tool's variants (T3's four ops, T4's three forms, T6's
 two layouts) and each variant's under ``variants`` -- and as ``launches_scan`` and ``launches_sweep`` on phase
 11's scans and untimed sweeps, counted from Python, which for the scans
 is the warm body and the capture's record; ``scan_graph_launches``, the
@@ -176,7 +199,9 @@ KERNELS = ("dct_encode", "decode_idct", "dct_quantize", "dequantize_idct",
 # T1-T7, in the order of the table of TPU kernels (PERF.md)
 PROBES = ("lane_shuffle", "bcast_mul", "lane_probes", "fma_probe",
           "huffman_tree", "consume_chain", "dct_chain")
-ALL = KERNELS + PROBES
+# F1, F2: the transforms of precision="fast" (phase 15)
+FAST = ("fast_dct_quantize", "fast_dequantize_idct")
+ALL = KERNELS + PROBES + FAST
 # the kernels of the multi-device path (phase 13)
 SHARDED = ("dct_encode", "decode_idct", "dct_quantize", "dequantize_idct")
 # f32 operations a pixel: X1 3 products and 2 sums of the luma, 2
@@ -188,6 +213,12 @@ KSCAN, NSCAN = 8, 112           # frames a scan, frames a sustained run
 RD_QUALITIES = (10, 30, 50, 70, 90)
 CUBE_FRAMES = 4
 CUBE_SHARE = 1e-3   # share of -cube pixels that may differ, card vs CPU
+# precision="fast": F1 and F2 equal their plain versions (the same FMA
+# chains); within +-1 of K3's coefficients and K4's pixels, on noise in at
+# most these shares of them (tests/test_torch_fast.py gives the reason);
+# PSNR within FAST_PSNR_DB of exact
+FAST_QUALITIES = (10, 50, 90)
+FAST_COEF_SHARE, FAST_PIXEL_SHARE, FAST_PSNR_DB = 1e-3, 1e-4, 0.05
 REPLACES = {
     "dct_encode": "myyuv_tpu/entropy/pallas_encode8.py:609",
     "decode_idct": "myyuv_tpu/entropy/pallas_decode8.py:189",
@@ -204,6 +235,9 @@ REPLACES = {
     "huffman_tree": "tools/exp_r3stage.py:107",
     "consume_chain": "tools/exp_sublane.py:84",
     "dct_chain": "tools/check_tpu_bitexact.py:94",
+    # no Pallas kernel: XLA einsums of the fast path
+    "fast_dct_quantize": "myyuv_tpu/kernels/device.py:158",
+    "fast_dequantize_idct": "myyuv_tpu/kernels/device.py:188",
 }
 
 
@@ -1134,6 +1168,7 @@ def main() -> int:
                     "noise": [p.cpu().numpy() for p in noise_planes]},
         stack)
     cube_viewer(card, px)
+    fast = fast_path(dev, card, img, planes, noise_planes, stack, rd_coder)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
@@ -1157,7 +1192,11 @@ def main() -> int:
          "replaces": REPLACES[name],
          "launches": launches["tools"][name],
          "max_abs_err": errs[name], **probe_sum[name]}
-        for name in PROBES]}))
+        for name in PROBES] + [
+        {"name": name, "route": "cuda",
+         "source": f"myyuv_tpu_torch/csrc/{name}.cu",
+         "replaces": REPLACES[name], **fast[name]}
+        for name in FAST]}))
     print(common.card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1371,6 +1410,376 @@ def cube_viewer(card: str, px: np.ndarray) -> None:
           f"texture load and BMP writes included: cuda "
           f"{cube_s['cuda'] * 1e3 / CUBE_FRAMES:.1f} ms, cpu "
           f"{cube_s['cpu'] * 1e3 / CUBE_FRAMES:.1f} ms", flush=True)
+
+
+def fast_path(dev, card: str, img, planes, noise_planes, stack,
+              rd_exact) -> dict:
+    """Phase 15: precision="fast". (a) F1 and F2 on the CLI and noise 4K
+    frames at q 10, 50, 90 against their plain versions and K3 / K4; (b)
+    F1's plain version alike with ``allow_tf32`` True and False; (c) the
+    fast main path, ``compress_dct`` then ``decompress_dct`` of the CLI
+    image (``img``) at q 10, 50, 90, the counts set to 0 just before the
+    q50 pair and read just after; (d) ``roundtrip_batch`` on the 8 x 1080p
+    ``stack``; (e) a fast ``roundtrip_scan`` at K = 8; (f) the fast sweep
+    beside the exact one (``rd_exact``); (g) ``compress_frame_sharded`` on
+    the card as two shards; (h) times. Returns F1's and F2's entries of
+    the kernels line."""
+    from myyuv_tpu_torch.engine import (batch, device_stream, pipeline,
+                                        sharded_stream, sweep)
+    from myyuv_tpu_torch.entropy import decode
+    from myyuv_tpu_torch.kernels import build, probe, transform
+    from myyuv_tpu_torch.kernels import device as kdev
+    from myyuv_tpu_torch.parallel import mesh as meshlib
+    from myyuv_tpu_torch.tools.common import bound_ms
+
+    errs = dict.fromkeys(FAST, 0)
+
+    def within(got, want, share, name, what):
+        """got within +-1 of want, differing in at most ``share`` of the
+        values (0: equal; None: any share); the largest |d| goes under
+        ``errs[name]``."""
+        for g, w_ in zip(got, want):
+            d = (g.to(torch.int32) - w_.to(torch.int32)).abs()
+            m, frac = int(d.max()), float((d != 0).double().mean())
+            if name:
+                errs[name] = max(errs[name], m)
+            check(m <= 1 and (share is None or frac <= share),
+                  f"{what}: max |d| {m}, share {frac:.3g} (bounds 1, "
+                  f"{share})")
+
+    # (a) the kernels against their plain versions and the exact kernels
+    t0 = time.perf_counter()
+    vs_exact = dict.fromkeys(FAST, 0.0)
+    for fname, fr in (("cli", planes), ("noise", noise_planes)):
+        for q in FAST_QUALITIES:
+            dct, qt = pipeline.codec_params([q] * 3, dev)
+            tag = f"{fname} q{q}"
+            cs, ps = ((FAST_COEF_SHARE, FAST_PIXEL_SHARE) if fname == "noise"
+                      else (None, None))
+            f1 = transform.fast_dct_quantize_blocks(*fr, qt, dct)
+            check(f1.device.type == dev.type, "F1 output not on the card")
+            within([f1], [transform.fast_dct_quantize_blocks_plain(
+                *fr, qt, dct)], 0, "fast_dct_quantize",
+                f"F1 against its plain version: {tag}")
+            k3 = transform.dct_quantize_blocks(*fr, qt, dct)
+            within([f1], [k3], cs, None, f"F1 against K3: {tag}")
+            vs_exact["fast_dct_quantize"] = max(
+                vs_exact["fast_dct_quantize"],
+                float((f1 != k3).double().mean()))
+            f2 = transform.fast_dequantize_idct_blocks(f1, qt, dct, H4K, W4K)
+            within(f2, transform.fast_dequantize_idct_blocks_plain(
+                f1, qt, dct, H4K, W4K), 0, "fast_dequantize_idct",
+                f"F2 against its plain version: {tag}")
+            k4 = transform.dequantize_idct_blocks(f1, qt, dct, H4K, W4K)
+            within(f2, k4, ps, None, f"F2 against K4: {tag}")
+            vs_exact["fast_dequantize_idct"] = max(
+                [vs_exact["fast_dequantize_idct"]]
+                + [float((a != b).double().mean()) for a, b in zip(f2, k4)])
+    # (b) the plain version runs no matmul: the TF32 switch changes nothing
+    dct, qt = pipeline.codec_params([90] * 3, dev)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    plain_tf32 = []
+    try:
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            plain_tf32.append(transform.fast_dct_quantize_blocks_plain(
+                *noise_planes, qt, dct))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    check(torch.equal(*plain_tf32), "plain F1 differs with allow_tf32 on")
+    print(f"[15a F1/F2 vs plain] {W4K}x{H4K} CLI and noise frames, q "
+          f"{FAST_QUALITIES}: F1 and F2 (on F1's coefficients) == their "
+          f"plain versions; within +-1 of K3 / K4, largest share differing "
+          f"F1 {vs_exact['fast_dct_quantize']:.3g}, F2 "
+          f"{vs_exact['fast_dequantize_idct']:.3g} (on noise within "
+          f"{FAST_COEF_SHARE} / {FAST_PIXEL_SHARE}); plain F1 identical with "
+          f"allow_tf32 True and False; max_abs_err F1 "
+          f"{errs['fast_dct_quantize']} F2 {errs['fast_dequantize_idct']}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (c) the fast main path through pipeline, the file held to the plain
+    # versions: its coefficients to plain F1's, its pixels to plain F2 of
+    # those coefficients
+    launches = {}
+    frame = device_stream.to_device(img.planes(), dev)
+    psnr = {}
+    for q in FAST_QUALITIES:
+        params = bytes([q] * 3)
+        if q == 50:
+            reset_launches()
+        comp = pipeline.compress_dct(img, params, device=dev,
+                                     precision="fast")
+        dec = pipeline.decompress_dct(comp, device=dev, precision="fast")
+        if q == 50:
+            torch.cuda.synchronize()
+            launches["main"] = dict(build.launches)
+        dct, qt = pipeline.codec_params([q] * 3, dev)
+        streams, _, _ = pipeline._dct_streams(comp, dev)
+        content, sizes = device_stream.streams_to_device(streams, dev)
+        offsets = torch.cumsum(sizes, 0, dtype=torch.int64) - sizes
+        coeffs, err = decode.decode_blocks_plain(content, sizes, offsets)
+        check(not err.any(), f"the fast q{q} file does not decode")
+        within([coeffs], [transform.fast_dct_quantize_blocks_plain(
+            *frame, qt, dct)], 0, None,
+            f"fast compress_dct q{q} against plain F1")
+        rec = [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+               for p in dec.planes()]
+        within(rec, transform.fast_dequantize_idct_blocks_plain(
+            coeffs, qt, dct, H4K, W4K), 0, None,
+            f"fast decompress_dct q{q} against plain F2")
+        exact = pipeline.decompress_dct(
+            pipeline.compress_dct(img, params, device=dev), device=dev)
+        yo = img.planes()[0].astype(np.float64)
+        psnr[q] = [10 * np.log10(255.0 ** 2 / max(float(
+            ((d.planes()[0].astype(np.float64) - yo) ** 2).mean()), 1e-12))
+            for d in (dec, exact)]
+        check(psnr[q][0] > 20 and abs(psnr[q][0] - psnr[q][1])
+              <= FAST_PSNR_DB, f"fast PSNR-Y at q{q}: {psnr[q]}")
+    want = dict.fromkeys(ALL, 0)
+    want.update(fast_dct_quantize=1, huffman_encode=1, huffman_decode=1,
+                fast_dequantize_idct=1)
+    check(launches["main"] == want,
+          f"the fast main path launched {launches['main']}")
+    print(f"[15c fast main path] compress_dct / decompress_dct "
+          f"precision='fast' of the {W4K}x{H4K} CLI image at q "
+          f"{FAST_QUALITIES}: coefficients == plain F1's, pixels == plain "
+          f"F2 of them; PSNR-Y fast / exact "
+          + ", ".join(f"q{q} {a:.3f} / {b:.3f} dB"
+                      for q, (a, b) in psnr.items())
+          + f"; launches at q50 {launches['main']}", flush=True)
+
+    # (d) the fast batch round trip: K5 and K6 are lossless, so its planes
+    # are F2(F1(x)) of the batch seen as one frame
+    dct, qt = pipeline.codec_params([50] * 3, dev)
+    bt = [torch.from_numpy(p).to(dev) for p in stack]
+    tall = [p.view(-1, p.shape[-1]) for p in bt]
+    reset_launches()
+    (ry, ru, rv), btotal, bok = device_stream.roundtrip_batch(
+        *bt, qt, dct, precision="fast")
+    torch.cuda.synchronize()
+    launches["batch"] = dict(build.launches)
+    f1 = transform.fast_dct_quantize_blocks(*tall, qt, dct)
+    want_planes = transform.fast_dequantize_idct_blocks(
+        f1, qt, dct, BATCH * H1K, W1K)
+    bsizes, bcontent = device_stream.compress_batch(*bt, qt, dct,
+                                                    precision="fast")
+    check(bool(bok) and int(btotal) == bcontent.numel(),
+          "fast roundtrip_batch: ok or total differ from compress_batch")
+    for g, w_ in zip((ry, ru, rv), want_planes):
+        check(torch.equal(g.reshape(w_.shape), w_),
+              "fast roundtrip_batch planes differ from F2(F1(x))")
+    (sy, su, sv), sm = batch.roundtrip_step(*bt, *qt, dct, precision="fast")
+    for g, w_ in zip((sy, su, sv), (ry, ru, rv)):
+        check(torch.equal(g, w_), "fast roundtrip_step planes differ from "
+              "the fast roundtrip_batch's")
+    want = dict.fromkeys(ALL, 0)
+    want.update(fast_dct_quantize=1, huffman_encode=1, huffman_decode=1,
+                fast_dequantize_idct=1)
+    check(launches["batch"] == want,
+          f"the fast batch round trip launched {launches['batch']}")
+
+    # (e) a fast scan: one graph of K frames of F1, K5, K6 and F2
+    stk = [p.expand(KSCAN, *p.shape).contiguous() for p in planes]
+    device_stream.clear_scan_graphs()
+    reset_launches()
+    totals, oks = device_stream.roundtrip_scan(*stk, qt, dct, "fast")
+    launches["scan"] = dict(build.launches)
+    graph = device_stream.scan_graph(KSCAN, H4K, W4K, stk[0].device, "fast")
+    fsizes, fcontent = device_stream.compress_frame(*planes, qt, dct,
+                                                    precision="fast")
+    check(oks.all() and (totals == fcontent.numel()).all(),
+          "the fast scan differs from the fast frame API")
+    check(graph.launches == dict.fromkeys(
+        ("fast_dct_quantize", "huffman_encode", "huffman_decode",
+         "fast_dequantize_idct"), KSCAN),
+        f"the fast scan's graph recorded {graph.launches}")
+    print(f"[15d/e fast batch and scan] {BATCH} x {W1K}x{H1K} q50 "
+          f"roundtrip_batch precision='fast': planes == F2(F1(x)) == "
+          f"roundtrip_step's, {int(btotal)} bytes, launches "
+          f"{launches['batch']}; roundtrip_scan K = {KSCAN} of the 4K CLI "
+          f"frame: totals == compress_frame's {fcontent.numel()}, a graph of "
+          f"{graph.launches}, launches from Python {launches['scan']}",
+          flush=True)
+
+    # (f) the fast sweep: PSNR within FAST_PSNR_DB of the exact sweep's,
+    # its two rate routes equal
+    frame_np = img.planes()
+    reset_launches()
+    rd_fast = sweep.quality_sweep(frame_np, RD_QUALITIES, None, device=dev,
+                                  precision="fast")
+    rd_fast_k = sweep.quality_sweep(frame_np, RD_QUALITIES, "device",
+                                    device=dev, precision="fast")
+    launches["sweep"] = dict(build.launches)
+    for f, g, e in zip(rd_fast, rd_fast_k, rd_exact):
+        check(f["compressed_bytes"] == g["compressed_bytes"],
+              f"the fast sweep's rate routes differ at q{f['quality']}")
+        for k in ("psnr_y_db", "psnr_u_db", "psnr_v_db"):
+            check(abs(f[k] - e[k]) <= FAST_PSNR_DB,
+                  f"fast sweep {k} at q{f['quality']}: {f[k]} against "
+                  f"exact {e[k]}")
+    for name in FAST:
+        check(launches["sweep"][name] > 0, f"the fast sweep skipped {name}")
+    for name in ("dct_encode", "decode_idct", "dct_quantize",
+                 "dequantize_idct"):
+        check(launches["sweep"][name] == 0,
+              f"the fast sweep launched {name}")
+
+    # (g) the sharded codec on the card as two shards
+    qts = list(qt.cpu().numpy())
+    mesh = meshlib.make_mesh((2, 1), [dev, dev])
+    want_streams = device_stream.compress_frame_to_streams(
+        frame_np, qt, dct, precision="fast")
+    reset_launches()
+    got = sharded_stream.compress_frame_sharded(mesh, frame_np, qts,
+                                                precision="fast")
+    rec = sharded_stream.decompress_frame_sharded(mesh, got, qts, H4K, W4K,
+                                                  precision="fast")
+    torch.cuda.synchronize()
+    launches["sharded"] = dict(build.launches)
+    for (gs, gc), (ws, wc) in zip(got, want_streams):
+        check(np.array_equal(gs, ws) and np.array_equal(gc, wc),
+              "fast sharded streams differ from compress_frame_to_streams")
+    for g, w_ in zip(rec, device_stream.decompress_streams_to_frame(
+            want_streams, qt, dct, H4K, W4K, precision="fast")):
+        check(np.array_equal(g, w_), "fast sharded planes differ")
+    check(launches["sharded"]["fast_dct_quantize"] == 2
+          and launches["sharded"]["fast_dequantize_idct"] == 2,
+          f"fast sharded launches {launches['sharded']}")
+    print(f"[15f/g fast sweep and shards] quality_sweep precision='fast' q "
+          f"{RD_QUALITIES}: both rate routes equal, PSNR within "
+          f"{FAST_PSNR_DB} dB of the exact sweep ("
+          + ", ".join(f"q{f['quality']} Y {f['psnr_y_db']} / {e['psnr_y_db']}"
+                      for f, e in zip(rd_fast, rd_exact))
+          + f"), launches {launches['sweep']}; compress_frame_sharded / "
+          f"decompress_frame_sharded on 2 shards of the card == the frame "
+          f"API, launches {launches['sharded']}", flush=True)
+
+    # (h) times: F1 and F2 beside K3 and K4 on the same inputs, the plain
+    # versions, and the torch.matmul formulation with TF32 off
+    c_e = transform.dct_quantize_blocks(*planes, qt, dct)
+    c_f = transform.fast_dct_quantize_blocks(*planes, qt, dct)
+    n = c_e.shape[0]
+    npx = H4K * W4K * 3 // 2
+    tables = qt.numel() * 4 + dct.numel() * 4
+
+    def queued(fn):
+        return probe.cuda_ms(fn, REPS, calls=1)
+
+    def matmul_forward(fr):
+        """F1's function as torch.matmul of [N, 8, 8] blocks."""
+        out = []
+        for i, p in enumerate(fr):
+            x = kdev.plane_to_blocks(p).to(torch.float32) - 128.0
+            coef = torch.matmul(torch.matmul(dct, x), dct.t())
+            out.append(kdev.round_half_away(coef / qt[i]).to(torch.int16)
+                       .reshape(-1, 64))
+        return torch.cat(out)
+
+    def matmul_inverse(c):
+        """F2's function as torch.matmul of [N, 8, 8] blocks."""
+        out = []
+        for i, b in enumerate(c.split(kdev.plane_block_counts(H4K, W4K))):
+            x = b.reshape(-1, 8, 8).to(torch.float32) * qt[i]
+            pix = torch.matmul(torch.matmul(dct.t(), x), dct)
+            r = kdev.round_half_away(pix).to(torch.int32) + 128
+            out.append(r.clamp(0, 255).to(torch.uint8))
+        return transform.blocks_to_planes(torch.cat(out), H4K, W4K)
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        within([matmul_forward(planes)], [c_f], None, None,
+               "the matmul formulation against F1")
+        times = {
+            "K3": probe.cuda_ms(lambda: transform.dct_quantize_blocks(
+                *planes, qt, dct), REPS),
+            "fast_dct_quantize": probe.cuda_ms(
+                lambda: transform.fast_dct_quantize_blocks(*planes, qt, dct),
+                REPS),
+            "K4": probe.cuda_ms(lambda: transform.dequantize_idct_blocks(
+                c_e, qt, dct, H4K, W4K), REPS),
+            "fast_dequantize_idct": probe.cuda_ms(
+                lambda: transform.fast_dequantize_idct_blocks(
+                    c_e, qt, dct, H4K, W4K), REPS),
+            "noise K3": probe.cuda_ms(lambda: transform.dct_quantize_blocks(
+                *noise_planes, qt, dct), REPS),
+            "noise F1": probe.cuda_ms(
+                lambda: transform.fast_dct_quantize_blocks(*noise_planes, qt,
+                                                           dct), REPS),
+        }
+        plain = {
+            "fast_dct_quantize": queued(
+                lambda: transform.fast_dct_quantize_blocks_plain(
+                    *planes, qt, dct)),
+            "fast_dequantize_idct": queued(
+                lambda: transform.fast_dequantize_idct_blocks_plain(
+                    c_e, qt, dct, H4K, W4K)),
+        }
+        library = {
+            "fast_dct_quantize": queued(lambda: matmul_forward(planes)),
+            "fast_dequantize_idct": queued(lambda: matmul_inverse(c_e)),
+        }
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    noise_c = transform.dct_quantize_blocks(*noise_planes, qt, dct)
+    times["noise K4"] = probe.cuda_ms(lambda: transform.dequantize_idct_blocks(
+        noise_c, qt, dct, H4K, W4K), REPS)
+    times["noise F2"] = probe.cuda_ms(
+        lambda: transform.fast_dequantize_idct_blocks(noise_c, qt, dct, H4K,
+                                                      W4K), REPS)
+    bounds = {"fast_dct_quantize": bound_ms(npx + tables + n * 128,
+                                            n * DCT_FLOP),
+              "fast_dequantize_idct": bound_ms(n * 128 + tables + npx,
+                                               n * DCT_FLOP)}
+    rec_e = device_stream.compress_frame(*planes, qt, dct)
+    rec_f = (fsizes, fcontent)
+    host = {}
+    for prec, (sz, ct) in (("exact", rec_e), ("fast", rec_f)):
+        host[prec] = [host_ms(f) for f in (
+            lambda: device_stream.compress_frame(*planes, qt, dct,
+                                                 precision=prec),
+            lambda: device_stream.decompress_frame(ct, sz, qt, dct, H4K, W4K,
+                                                   precision=prec),
+            lambda: pipeline.compress_dct(img, bytes([50] * 3), device=dev,
+                                          precision=prec),
+            lambda: device_stream.roundtrip_batch(*bt, qt, dct, prec),
+            lambda: batch.roundtrip_step(*bt, *qt, dct, prec))]
+    device_stream.clear_scan_graphs()
+    scan_ms = {prec: probe.cuda_ms(lambda: device_stream.roundtrip_scan(
+        *stk, qt, dct, prec), REPS) for prec in ("exact", "fast")}
+    device_stream.clear_scan_graphs()
+    print(f"[15h times] {card} | {W4K}x{H4K} q50 CLI frame, CUDA events "
+          f"around calls queued behind a busy card, median of {REPS}: "
+          f"F1 {times['fast_dct_quantize']:.4f} ms against K3 "
+          f"{times['K3']:.4f}, F2 {times['fast_dequantize_idct']:.4f} "
+          f"against K4 {times['K4']:.4f} (noise frame: F1 "
+          f"{times['noise F1']:.4f} / K3 {times['noise K3']:.4f}, F2 "
+          f"{times['noise F2']:.4f} / K4 {times['noise K4']:.4f}); bound "
+          f"{bounds['fast_dct_quantize'][0]:.4f} ms by "
+          f"{bounds['fast_dct_quantize'][1]}; plain F1 "
+          f"{plain['fast_dct_quantize']:.4f}, F2 "
+          f"{plain['fast_dequantize_idct']:.4f}; torch.matmul formulation, "
+          f"TF32 off: F1's {library['fast_dct_quantize']:.4f}, F2's "
+          f"{library['fast_dequantize_idct']:.4f}; roundtrip_scan K = "
+          f"{KSCAN}: exact {scan_ms['exact']:.4f} ms, fast "
+          f"{scan_ms['fast']:.4f} ms", flush=True)
+    print(f"[15h times] {card} | host clock, median of {REPS}, exact / fast: "
+          + ", ".join(f"{k} {a:.3f} / {b:.3f} ms" for k, a, b in zip(
+              ("compress_frame 4K", "decompress_frame 4K", "compress_dct 4K",
+               f"roundtrip_batch {BATCH} x 1080p",
+               f"roundtrip_step {BATCH} x 1080p"),
+              host["exact"], host["fast"])), flush=True)
+    del stk, frame, bt, tall
+    return {name: {"launches": launches["main"][name],
+                   "max_abs_err": errs[name],
+                   "share_differing_from_exact": vs_exact[name],
+                   "ms": times[name], "plain_ms": plain[name],
+                   "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                   "library_ms": library[name],
+                   "launches_batch": launches["batch"][name],
+                   "launches_sweep": launches["sweep"][name],
+                   "launches_sharded": launches["sharded"][name]}
+            for name in FAST}
 
 
 def gloo_worker(argv) -> int:

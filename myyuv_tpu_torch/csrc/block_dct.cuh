@@ -11,6 +11,12 @@
 // quantize is roundf(__fdiv_rn(coef, q)), IEEE division and half-away
 // rounding, as int16(std::round(coef / q)) in DCT.cpp:273; dequantize is one
 // exact f32 product; pixels are clamp(roundf(x) + 128, 0, 255).
+//
+// kFast = true is precision="fast" (F1 fast_dct_quantize.cu, F2
+// fast_dequantize_idct.cu): each step of a chain after the first product is
+// one __fmaf_rn, rounded once, k ascending; everything else as above. The
+// explicit intrinsic is an FMA whatever -fmad says. No tensor core, no TF32.
+// The exact instances (kFast = false, the default) are the code K1-K4 had.
 #pragma once
 
 #include "codec_common.cuh"
@@ -20,6 +26,13 @@ namespace myyuv {
 // K3's and K4's CTA: 32 groups of 8 lanes, each group one block at a time.
 constexpr int kTransformThreads = 256;
 constexpr int kTransformGroups = kTransformThreads / 8;
+
+// acc + a * b of a transform chain: two roundings (__fmul_rn, then
+// __fadd_rn) in the exact transforms, one (__fmaf_rn) in the fast ones.
+template <bool kFast>
+__device__ __forceinline__ float mul_add(float a, float b, float acc) {
+  return kFast ? __fmaf_rn(a, b, acc) : __fadd_rn(acc, __fmul_rn(a, b));
+}
 
 // 8 consecutive floats of 16-byte aligned shared memory as two vector loads.
 __device__ __forceinline__ void load_row(const float* p, float (&v)[8]) {
@@ -53,6 +66,7 @@ __device__ __forceinline__ uint2 load_pixel_row(const uint8_t* px,
 // of C . B and then of the quantized (C . B) . C^T into out, in registers.
 // x is the group's 64-float slice of shared memory for the pixels - 128; c
 // and q are 16-byte aligned. Every lane of the warp calls this.
+template <bool kFast = false>
 __device__ __forceinline__ void dct_quantize_group(uint2 pix, const float* c,
                                                    const float* q, float* x,
                                                    int lane,
@@ -72,7 +86,7 @@ __device__ __forceinline__ void dct_quantize_group(uint2 pix, const float* c,
 #pragma unroll
     for (int k = 0; k < 8; ++k)
       cb[k] = kk == 0 ? __fmul_rn(crow[0], xr[k])
-                      : __fadd_rn(cb[k], __fmul_rn(crow[kk], xr[k]));
+                      : mul_add<kFast>(crow[kk], xr[k], cb[k]);
   }
   float qr[8];
   load_row(q + lane * 8, qr);
@@ -83,7 +97,7 @@ __device__ __forceinline__ void dct_quantize_group(uint2 pix, const float* c,
     float acc = __fmul_rn(cb[0], cj[0]);
 #pragma unroll
     for (int kk = 1; kk < 8; ++kk)
-      acc = __fadd_rn(acc, __fmul_rn(cb[kk], cj[kk]));
+      acc = mul_add<kFast>(cb[kk], cj[kk], acc);
     out[k] = int16_t(int(roundf(__fdiv_rn(acc, qr[k]))));
   }
 }
@@ -113,6 +127,7 @@ __device__ __forceinline__ void load_idct_regs(const float* c, int lane,
 // of C^T . X and of (C^T . X) . C in registers and stores the row's 8
 // pixels at px + lane * stride, all 0 if bad. q is 16-byte aligned. A group
 // with store false writes nothing. Every lane of the warp calls this.
+template <bool kFast = false>
 __device__ __forceinline__ void dequantize_idct_group(
     uint4 row, const IdctRegs& c, const float* q, float* x, int lane,
     bool store, bool bad, uint8_t* px, int stride) {
@@ -133,7 +148,7 @@ __device__ __forceinline__ void dequantize_idct_group(
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       t[j] = kk == 0 ? __fmul_rn(ccol[0], xr[j])
-                     : __fadd_rn(t[j], __fmul_rn(ccol[kk], xr[j]));
+                     : mul_add<kFast>(ccol[kk], xr[j], t[j]);
   }
   float acc[8];  // row `lane` of (C^T . X) . C
 #pragma unroll
@@ -141,7 +156,7 @@ __device__ __forceinline__ void dequantize_idct_group(
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       acc[j] = kk == 0 ? __fmul_rn(t[0], c.c[j])
-                       : __fadd_rn(acc[j], __fmul_rn(t[kk], c.c[kk * 8 + j]));
+                       : mul_add<kFast>(t[kk], c.c[kk * 8 + j], acc[j]);
   }
   uint32_t pix[2] = {0, 0};
 #pragma unroll

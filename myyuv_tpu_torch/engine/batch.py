@@ -4,8 +4,9 @@ Port of ``myyuv_tpu/engine/batch.py`` (``plane_qtables``,
 ``symbol_histogram``, ``encode_planes``, ``decode_planes``,
 ``roundtrip_step``). Frames are batched on a leading axis; the forward and
 inverse transforms are K3 (``kernels/transform.dct_quantize_blocks``) and K4
-(``dequantize_idct_blocks``) over the batch seen as one frame of B*H rows,
-on the card for CUDA tensors and their plain versions for CPU tensors. The
+(``dequantize_idct_blocks``), or F1 and F2 with ``precision="fast"``, over
+the batch seen as one frame of B*H rows, on the card for CUDA tensors and
+their plain versions for CPU tensors. The
 statistics (per-plane squared-error sums, the global 2048-bin symbol
 histogram, the entropy estimate) are PyTorch reductions.
 ``make_sharded_roundtrip`` runs the step over a (data, block) device mesh.
@@ -57,59 +58,66 @@ def symbol_histogram(coeffs: torch.Tensor) -> torch.Tensor:
     return hist[:NUM_SYMBOLS].to(torch.int32)
 
 
-def _forward(y, u, v, qts, dct):
-    """K3 over the batch as one frame -> (coefficients [N, 64], per-plane
-    views [..., n, 8, 8])."""
+def _forward(y, u, v, qts, dct, precision: str = "exact"):
+    """K3 (F1 when fast) over the batch as one frame -> (coefficients
+    [N, 64], per-plane views [..., n, 8, 8])."""
     lead = y.shape[:-2]
     ys, us, vs = as_one_frame(y, u, v)
     c = kdev.dct_matrix(y.device) if dct is None else dct
-    coeffs = transform.dct_quantize_blocks(ys, us, vs, torch.stack(qts), c)
+    coeffs = transform.dct_quantize_blocks(ys, us, vs, torch.stack(qts), c,
+                                           precision)
     n = kdev.plane_block_counts(*ys.shape)
     return coeffs, tuple(p.view(*lead, -1, 8, 8) for p in coeffs.split(n))
 
 
-def _inverse(coeffs, qts, dct, lead, h, w) -> Planes:
-    """K4 of [N, 64] coefficients over the batch as one frame -> planes
-    [..., H, W] (+ chroma)."""
+def _inverse(coeffs, qts, dct, lead, h, w, precision: str = "exact"
+             ) -> Planes:
+    """K4 (F2 when fast) of [N, 64] coefficients over the batch as one
+    frame -> planes [..., H, W] (+ chroma)."""
     c = kdev.dct_matrix(coeffs.device) if dct is None else dct
     y, u, v = transform.dequantize_idct_blocks(
-        coeffs, torch.stack(qts), c, math.prod(lead) * h, w)
+        coeffs, torch.stack(qts), c, math.prod(lead) * h, w, precision)
     return (y.view(*lead, h, w), u.view(*lead, h // 2, w // 2),
             v.view(*lead, h // 2, w // 2))
 
 
 def encode_planes(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                   qt_y: torch.Tensor, qt_u: torch.Tensor, qt_v: torch.Tensor,
-                  dct: torch.Tensor | None = None) -> Planes:
+                  dct: torch.Tensor | None = None,
+                  precision: str = "exact") -> Planes:
     """[B, H, W] (or [H, W]) + chroma uint8 -> per-plane quantized
-    coefficients [B, n, 8, 8] int16 (raster blocks per frame), via K3."""
-    return _forward(y, u, v, (qt_y, qt_u, qt_v), dct)[1]
+    coefficients [B, n, 8, 8] int16 (raster blocks per frame), via K3 (F1
+    with ``precision="fast"``)."""
+    return _forward(y, u, v, (qt_y, qt_u, qt_v), dct, precision)[1]
 
 
 def decode_planes(cy: torch.Tensor, cu: torch.Tensor, cv: torch.Tensor,
                   qt_y: torch.Tensor, qt_u: torch.Tensor, qt_v: torch.Tensor,
-                  h: int, w: int, dct: torch.Tensor | None = None) -> Planes:
+                  h: int, w: int, dct: torch.Tensor | None = None,
+                  precision: str = "exact") -> Planes:
     """Per-plane coefficients [B, n, 8, 8] (or [n, 8, 8]) -> [B, H, W]
-    (+ chroma) uint8 planes, via K4."""
+    (+ chroma) uint8 planes, via K4 (F2 with ``precision="fast"``)."""
     coeffs = torch.cat([p.reshape(-1, 64) for p in (cy, cu, cv)])
-    return _inverse(coeffs, (qt_y, qt_u, qt_v), dct, cy.shape[:-3], h, w)
+    return _inverse(coeffs, (qt_y, qt_u, qt_v), dct, cy.shape[:-3], h, w,
+                    precision)
 
 
 def roundtrip_step(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                    qt_y: torch.Tensor, qt_u: torch.Tensor, qt_v: torch.Tensor,
-                   dct: torch.Tensor | None = None
+                   dct: torch.Tensor | None = None, precision: str = "exact"
                    ) -> Tuple[Planes, Dict[str, torch.Tensor]]:
     """Transform round trip (DCT -> quantize -> reconstruct) + metrics.
 
     Returns the reconstructed planes and the JAX package's metrics dict:
     per-plane float32 squared-error sums ``sse_y/u/v`` (for PSNR), the
     global ``symbol_hist`` and ``entropy_bits_per_symbol``, all on the
-    planes' device.
+    planes' device. ``precision="fast"`` runs F1 and F2 in place of K3
+    and K4; any value but "exact" and "fast" raises ValueError.
     """
     h, w = y.shape[-2:]
     qts = (qt_y, qt_u, qt_v)
-    coeffs, _ = _forward(y, u, v, qts, dct)
-    ry, ru, rv = _inverse(coeffs, qts, dct, y.shape[:-2], h, w)
+    coeffs, _ = _forward(y, u, v, qts, dct, precision)
+    ry, ru, rv = _inverse(coeffs, qts, dct, y.shape[:-2], h, w, precision)
 
     def sq_err(a, b):
         d = a.to(torch.float32) - b.to(torch.float32)
@@ -133,10 +141,12 @@ def entropy_bits(hist: torch.Tensor) -> torch.Tensor:
         torch.where(p > 0, p * torch.log2(p), torch.zeros_like(p)))
 
 
-def make_sharded_roundtrip(mesh: Mesh):
+def make_sharded_roundtrip(mesh: Mesh, precision: str = "exact"):
     """The round trip step over ``mesh``: ``step(y, u, v, qt_y, qt_u, qt_v,
     dct=None)`` takes [B, H, W] (+ 2x [B, H/2, W/2]) uint8 planes, as
-    ``roundtrip_step`` does, and returns its planes and metrics.
+    ``roundtrip_step`` does, and returns its planes and metrics; each shard
+    runs ``roundtrip_step`` at ``precision`` (F1 + F2 on a CUDA device when
+    "fast"; any value but "exact" and "fast" raises ValueError).
 
     Frames split over the ``data`` axis (``distributed.shard_batch``) and
     each frame's block rows over ``block``; each shard runs
@@ -169,7 +179,8 @@ def make_sharded_roundtrip(mesh: Mesh):
                          for p, r in zip(parts, (hs, hs // 2, hs // 2))]
                 qts = [q.to(dev) for q in (qt_y, qt_u, qt_v)]
                 out, m = roundtrip_step(*shard, *qts,
-                                        None if dct is None else dct.to(dev))
+                                        None if dct is None else dct.to(dev),
+                                        precision)
                 planes.append([p.to(y.device) for p in out])
                 metrics.append(m)
         out = tuple(torch.cat([torch.cat([planes[i * cols + j][k]

@@ -35,6 +35,15 @@ K frames a call (``roundtrip_scan``, the JAX package's ``lax.scan`` of
 ``roundtrip_frame``): a CUDA graph of K captured ``roundtrip_frame``
 bodies (``ScanGraph``), replayed once a call.
 
+``precision="fast"`` (the entries whose JAX counterparts take it; default
+"exact", any other value raises ValueError) takes the staged route with
+the fast transforms, as the JAX package's ``fast`` never enters its packed
+or fused kernels (``myyuv_tpu/engine/device_stream.py:188, 477``): F1
+(``transform.fast_dct_quantize_blocks``) then K5 to compress, K6 then F2
+(``fast_dequantize_idct_blocks``) to decompress; ``fused`` is ignored.
+Coefficients and pixels are within +-1 of exact; the streams are ordinary
+``.myyuv`` DCT streams, which decode with either precision.
+
 Blocks are ordered Y raster, then U, then V (DCT.cpp:112-173). A batch of B
 frames ([B, H, W] and 2x [B, H/2, W/2], contiguous) is coded as one frame of
 B*H rows, which gives the JAX package's plane-major batch order (all Y,
@@ -52,6 +61,7 @@ import torch
 from ..entropy import decode, encode
 from ..entropy.device import LANE
 from ..kernels import build, convert, transform
+from ..kernels import device as kdev
 from ..kernels.device import plane_block_counts
 from ..runtime.errors import BitstreamError
 
@@ -104,34 +114,52 @@ def scatter_chunks(lanes: torch.Tensor, sizes: torch.Tensor
     return out.view(torch.uint8)[:cap], sizes.sum(dtype=torch.int64)
 
 
-def _encode(y, u, v, qtables, dct, fused: bool):
-    """Planes -> (sizes i32 [N], content u8 [T], err i32 [N])."""
-    if fused:
-        lanes, sizes, err = encode.dct_encode_blocks(y, u, v, qtables, dct)
-    else:
-        lanes, sizes, err = encode.encode_blocks(
-            transform.dct_quantize_blocks(y, u, v, qtables, dct))
-    return sizes, compact_chunks(lanes, sizes), err
+def frame_lanes(y, u, v, qtables, dct, fused: bool = True,
+                precision: str = "exact"):
+    """Planes -> (lanes u8 [N, 256], sizes i32 [N], err i32 [N]): K1, or
+    K3 then K5 with ``fused=False``, or F1 then K5 with
+    ``precision="fast"``."""
+    if fused and not kdev.is_fast(precision):
+        return encode.dct_encode_blocks(y, u, v, qtables, dct)
+    return encode.encode_blocks(transform.dct_quantize_blocks(
+        y, u, v, qtables, dct, precision))
 
 
-def _decode(content, sizes, qtables, dct, h, w, fused: bool):
-    """(content, sizes) -> (y, u, v, err i32 [N])."""
-    offsets = torch.cumsum(sizes, 0, dtype=torch.int64) - sizes
-    if fused:
+def frame_planes(content, sizes, offsets, qtables, dct, h, w,
+                 fused: bool = True, precision: str = "exact"):
+    """Chunks at ``offsets`` -> (y, u, v, err i32 [N]): K2, or K6 then K4
+    with ``fused=False``, or K6 then F2 with ``precision="fast"``."""
+    if fused and not kdev.is_fast(precision):
         return decode.decode_idct_blocks(content, sizes, offsets, qtables,
                                          dct, h, w)
     coeffs, err = decode.decode_blocks(content, sizes, offsets)
-    return (*transform.dequantize_idct_blocks(coeffs, qtables, dct, h, w),
-            err)
+    return (*transform.dequantize_idct_blocks(coeffs, qtables, dct, h, w,
+                                              precision), err)
+
+
+def _encode(y, u, v, qtables, dct, fused: bool, precision: str = "exact"):
+    """Planes -> (sizes i32 [N], content u8 [T], err i32 [N])."""
+    lanes, sizes, err = frame_lanes(y, u, v, qtables, dct, fused, precision)
+    return sizes, compact_chunks(lanes, sizes), err
+
+
+def _decode(content, sizes, qtables, dct, h, w, fused: bool,
+            precision: str = "exact"):
+    """(content, sizes) -> (y, u, v, err i32 [N])."""
+    offsets = torch.cumsum(sizes, 0, dtype=torch.int64) - sizes
+    return frame_planes(content, sizes, offsets, qtables, dct, h, w, fused,
+                        precision)
 
 
 def compress_frame(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                    qtables: torch.Tensor, dct: torch.Tensor,
-                   fused: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                   fused: bool = True, precision: str = "exact"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Device planes -> (sizes i32 [N], content u8 [T]) on the same device:
     the chunks of all blocks back to back, exactly as the file stores
-    them. ``fused=False`` takes the staged route (K3 then K5)."""
-    sizes, content, err = _encode(y, u, v, qtables, dct, fused)
+    them. ``fused=False`` takes the staged route (K3 then K5);
+    ``precision="fast"`` F1 then K5, whatever ``fused`` says."""
+    sizes, content, err = _encode(y, u, v, qtables, dct, fused, precision)
     _raise_first_bad(err, "Huffman encode")
     return sizes, content
 
@@ -156,23 +184,26 @@ def to_device(planes: Sequence[np.ndarray], dev: torch.device):
 
 def compress_frame_to_streams(planes: Sequence[np.ndarray],
                               qtables: torch.Tensor, dct: torch.Tensor,
-                              fused: bool = True) -> List[Stream]:
+                              fused: bool = True, precision: str = "exact"
+                              ) -> List[Stream]:
     """(y, u, v) uint8 planes -> [(sizes u8, content u8)] per plane, coded
-    on ``qtables.device``."""
+    on ``qtables.device`` (``compress_frame``'s routes)."""
     sizes, content = compress_frame(*to_device(planes, qtables.device),
-                                    qtables, dct, fused)
+                                    qtables, dct, fused, precision)
     return split_planes(sizes.cpu().numpy(), content.cpu().numpy(),
                         *planes[0].shape)
 
 
 def decompress_frame(content: torch.Tensor, sizes: torch.Tensor,
                      qtables: torch.Tensor, dct: torch.Tensor, h: int,
-                     w: int, fused: bool = True
+                     w: int, fused: bool = True, precision: str = "exact"
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(content u8 [T], sizes i32 [N]) on the device -> (y, u, v) uint8
     planes on it. Raises BitstreamError naming the first bad block.
-    ``fused=False`` takes the staged route (K6 then K4)."""
-    y, u, v, err = _decode(content, sizes, qtables, dct, h, w, fused)
+    ``fused=False`` takes the staged route (K6 then K4);
+    ``precision="fast"`` K6 then F2, whatever ``fused`` says."""
+    y, u, v, err = _decode(content, sizes, qtables, dct, h, w, fused,
+                           precision)
     _raise_first_bad(err, "Huffman decode")
     return y, u, v
 
@@ -198,13 +229,16 @@ def streams_to_device(streams: Sequence[Stream], dev: torch.device
 
 def decompress_streams_to_frame(streams: Sequence[Stream],
                                 qtables: torch.Tensor, dct: torch.Tensor,
-                                h: int, w: int, fused: bool = True
+                                h: int, w: int, fused: bool = True,
+                                precision: str = "exact"
                                 ) -> Tuple[np.ndarray, np.ndarray,
                                            np.ndarray]:
     """Per-plane (sizes u8, content u8) -> (y, u, v) uint8 planes, decoded
-    on ``qtables.device`` (``streams_to_device``'s checks)."""
+    on ``qtables.device`` (``streams_to_device``'s checks;
+    ``decompress_frame``'s routes)."""
     content, sizes = streams_to_device(streams, qtables.device)
-    y, u, v = decompress_frame(content, sizes, qtables, dct, h, w, fused)
+    y, u, v = decompress_frame(content, sizes, qtables, dct, h, w, fused,
+                               precision)
     return y.cpu().numpy(), u.cpu().numpy(), v.cpu().numpy()
 
 
@@ -234,46 +268,53 @@ def as_one_frame(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor
 
 
 def compress_batch(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                   qtables: torch.Tensor, dct: torch.Tensor
+                   qtables: torch.Tensor, dct: torch.Tensor,
+                   precision: str = "exact"
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B, H, W] (+2x [B, H/2, W/2]) uint8 on the device -> (sizes i32
     [B*Nf], content u8 [T]) on it, blocks plane-major. Raises
-    BitstreamError naming the first bad block."""
-    return compress_frame(*as_one_frame(y, u, v), qtables, dct)
+    BitstreamError naming the first bad block. ``precision="fast"``: F1
+    then K5."""
+    return compress_frame(*as_one_frame(y, u, v), qtables, dct,
+                          precision=precision)
 
 
 def decompress_batch(content: torch.Tensor, sizes: torch.Tensor,
                      qtables: torch.Tensor, dct: torch.Tensor, b: int,
-                     h: int, w: int
+                     h: int, w: int, precision: str = "exact"
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """A batch's plane-major (content, sizes) -> ([B, H, W], 2x
     [B, H/2, W/2]) uint8 planes on the device. Raises BitstreamError
-    naming the first bad block."""
-    y, u, v = decompress_frame(content, sizes, qtables, dct, b * h, w)
+    naming the first bad block. ``precision="fast"``: K6 then F2."""
+    y, u, v = decompress_frame(content, sizes, qtables, dct, b * h, w,
+                               precision=precision)
     return (y.view(b, h, w), u.view(b, h // 2, w // 2),
             v.view(b, h // 2, w // 2))
 
 
 def roundtrip_frame(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                    qtables: torch.Tensor, dct: torch.Tensor):
+                    qtables: torch.Tensor, dct: torch.Tensor,
+                    precision: str = "exact"):
     """Compress + decompress on the device -> (ry, ru, rv, total bytes,
     ok), total and ok as device scalars — the transcode / RD-loop entry.
     K2 decodes K1's lanes in place (offsets 256 * b), so nothing waits for
-    the card: no compaction, no host sync."""
+    the card: no compaction, no host sync. ``precision="fast"``: F1 and K5,
+    then K6 on K5's lanes in place and F2."""
     h, w = y.shape
-    lanes, sizes, cerr = encode.dct_encode_blocks(y, u, v, qtables, dct)
+    lanes, sizes, cerr = frame_lanes(y, u, v, qtables, dct,
+                                     precision=precision)
     offsets = torch.arange(sizes.numel(), dtype=torch.int64,
                            device=lanes.device) * LANE
-    ry, ru, rv, derr = decode.decode_idct_blocks(lanes.view(-1), sizes,
-                                                 offsets, qtables, dct, h, w)
+    ry, ru, rv, derr = frame_planes(lanes.view(-1), sizes, offsets,
+                                    qtables, dct, h, w, precision=precision)
     ok = ~(cerr.any() | derr.any())
     return ry, ru, rv, sizes.sum(dtype=torch.int64), ok
 
 
-def _scan_bodies(ys, us, vs, qtables, dct):
+def _scan_bodies(ys, us, vs, qtables, dct, precision: str = "exact"):
     """``roundtrip_frame`` of each of K stacked frames -> (totals i64 [K],
     oks bool [K]) on their device."""
-    outs = [roundtrip_frame(ys[i], us[i], vs[i], qtables, dct)[3:]
+    outs = [roundtrip_frame(ys[i], us[i], vs[i], qtables, dct, precision)[3:]
             for i in range(ys.shape[0])]
     if not outs:
         return (torch.zeros(0, dtype=torch.int64, device=ys.device),
@@ -284,8 +325,9 @@ def _scan_bodies(ys, us, vs, qtables, dct):
 
 class ScanGraph:
     """One CUDA graph of K ``roundtrip_frame`` bodies over [K, H, W] frames
-    on one CUDA device: K launches of K1 and K of K2, no host work between
-    them, one ``replay`` a call.
+    on one CUDA device: K launches of K1 and K of K2 (with
+    ``precision="fast"``, K each of F1, K5, K6 and F2), no host work
+    between them, one ``replay`` a call.
 
     A graph reads and writes the addresses it was captured with, so it
     owns its inputs (``ys``, ``us``, ``vs``, ``qtables``, ``dct``) and its
@@ -306,11 +348,13 @@ class ScanGraph:
     queued on one stream: a call on another stream could overwrite them
     before an earlier replay has read them."""
 
-    def __init__(self, k: int, h: int, w: int, device: torch.device):
+    def __init__(self, k: int, h: int, w: int, device: torch.device,
+                 precision: str = "exact"):
         def empty(*shape, dtype=torch.uint8):
             return torch.empty(shape, dtype=dtype, device=device)
 
         self.device = device
+        self.precision = precision
         self.ys, self.us, self.vs = (empty(k, h, w),
                                      empty(k, h // 2, w // 2),
                                      empty(k, h // 2, w // 2))
@@ -333,12 +377,13 @@ class ScanGraph:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            _scan_bodies(*(a[:1] for a in args[:3]), *args[3:])
+            _scan_bodies(*(a[:1] for a in args[:3]), *args[3:],
+                         self.precision)
         torch.cuda.current_stream(self.device).wait_stream(side)
         before = dict(build.launches)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            self.totals, self.oks = _scan_bodies(*args)
+            self.totals, self.oks = _scan_bodies(*args, self.precision)
         self.launches = {name: build.launches[name] - n
                          for name, n in before.items()
                          if build.launches[name] > n}
@@ -362,12 +407,14 @@ class ScanGraph:
 _scan_graphs: Dict[Tuple, ScanGraph] = {}
 
 
-def scan_graph(k: int, h: int, w: int, device: torch.device) -> ScanGraph:
-    """The cached ``ScanGraph`` of K h x w frames on CUDA ``device``; made
-    (not yet captured) at first use."""
-    key = (device, k, h, w)
+def scan_graph(k: int, h: int, w: int, device: torch.device,
+               precision: str = "exact") -> ScanGraph:
+    """The cached ``ScanGraph`` of K h x w frames on CUDA ``device`` at
+    ``precision``; made (not yet captured) at first use."""
+    kdev.is_fast(precision)
+    key = (device, k, h, w, precision)
     if key not in _scan_graphs:
-        _scan_graphs[key] = ScanGraph(k, h, w, device)
+        _scan_graphs[key] = ScanGraph(k, h, w, device, precision)
     return _scan_graphs[key]
 
 
@@ -398,7 +445,8 @@ def _check_scan(ys, us, vs, qtables, dct) -> Tuple[int, int, int]:
 
 
 def roundtrip_scan(ys: torch.Tensor, us: torch.Tensor, vs: torch.Tensor,
-                   qtables: torch.Tensor, dct: torch.Tensor
+                   qtables: torch.Tensor, dct: torch.Tensor,
+                   precision: str = "exact"
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K whole-frame round trips of stacked frames ([K, H, W] and
     2x [K, H/2, W/2] u8) -> (totals i64 [K], oks bool [K]) on their
@@ -411,21 +459,26 @@ def roundtrip_scan(ys: torch.Tensor, us: torch.Tensor, vs: torch.Tensor,
     nothing. Calls of one geometry share the graph's inputs, so queue them
     on one stream. Each geometry keeps its graph, its inputs and its
     private pool (117.4 MB beside 145.5 MB of inputs at K = 8 of
-    4032x3008 on an H100) until ``clear_scan_graphs()``. On the CPU: the same K bodies
-    in a loop."""
+    4032x3008 on an H100) until ``clear_scan_graphs()``. On the CPU: the
+    same K bodies in a loop. ``precision`` joins the graph's key: a fast
+    scan's graph runs F1, K5, K6 and F2 a frame."""
     k, h, w = _check_scan(ys, us, vs, qtables, dct)
     if build.on_cpu(ys.device, "roundtrip_scan") or k == 0:
-        return _scan_bodies(ys, us, vs, qtables, dct)
-    return scan_graph(k, h, w, ys.device).run(ys, us, vs, qtables, dct)
+        return _scan_bodies(ys, us, vs, qtables, dct, precision)
+    return scan_graph(k, h, w, ys.device, precision).run(ys, us, vs,
+                                                         qtables, dct)
 
 
 def encode_frame(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                 qtables: torch.Tensor, dct: torch.Tensor):
+                 qtables: torch.Tensor, dct: torch.Tensor,
+                 precision: str = "exact"):
     """Planes on the device -> (sizes i32 [N], content u8 [N * 255], total
-    i64, ok bool) on it: K1, then ``scatter_chunks``; the frame's on-disk
-    chunk stream is ``content[:total]``. ``total`` and ``ok`` are device
-    scalars: no host sync."""
-    lanes, sizes, err = encode.dct_encode_blocks(y, u, v, qtables, dct)
+    i64, ok bool) on it: K1 (F1 then K5 with ``precision="fast"``), then
+    ``scatter_chunks``; the frame's on-disk chunk stream is
+    ``content[:total]``. ``total`` and ``ok`` are device scalars: no host
+    sync."""
+    lanes, sizes, err = frame_lanes(y, u, v, qtables, dct,
+                                    precision=precision)
     content, total = scatter_chunks(lanes, sizes)
     return sizes, content, total, ~err.any()
 
@@ -436,8 +489,14 @@ def ingest_frame(pixels: torch.Tensor, qtables: torch.Tensor,
     16) on the device -> X1 -> K1 -> (sizes, content, total, ok) as
     ``encode_frame`` returns them; a batch is coded as one frame of
     prod(...) * H rows (plane-major blocks). No host sync."""
+    return _ingest(pixels, qtables, dct)
+
+
+def _ingest(pixels, qtables, dct, precision: str = "exact"):
+    """``ingest_frame`` at ``precision`` (X1, then F1 and K5 when fast):
+    the step of ``streaming.ingest_stream``."""
     return encode_frame(*as_one_frame(*convert.bgrx_to_iyuv(pixels)),
-                        qtables, dct)
+                        qtables, dct, precision)
 
 
 def preview_frame(content: torch.Tensor, sizes: torch.Tensor,
@@ -447,17 +506,26 @@ def preview_frame(content: torch.Tensor, sizes: torch.Tensor,
     [N]) on the device -> K2 -> X2 -> (BGRX u8 [H, W, 4], ok bool device
     scalar). No host sync; a bad chunk's block decodes to zero pixels and
     ``ok`` is False."""
-    *planes, err = _decode(content, sizes, qtables, dct, h, w, True)
+    return _preview(content, sizes, qtables, dct, h, w)
+
+
+def _preview(content, sizes, qtables, dct, h, w, precision: str = "exact"):
+    """``preview_frame`` at ``precision`` (K6 and F2 when fast, then X2):
+    the step of ``streaming.preview_stream``."""
+    *planes, err = _decode(content, sizes, qtables, dct, h, w, True,
+                           precision)
     return convert.iyuv_to_bgrx(*planes), ~err.any()
 
 
 def roundtrip_batch(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                    qtables: torch.Tensor, dct: torch.Tensor):
+                    qtables: torch.Tensor, dct: torch.Tensor,
+                    precision: str = "exact"):
     """Round trip of a [B, ...] frame batch -> ((ry, ru, rv) [B, ...],
-    total compressed bytes, ok), all on the device."""
+    total compressed bytes, ok), all on the device (``roundtrip_frame``'s
+    routes)."""
     b, h, w = y.shape
     ry, ru, rv, total, ok = roundtrip_frame(*as_one_frame(y, u, v), qtables,
-                                            dct)
+                                            dct, precision)
     return ((ry.view(b, h, w), ru.view(b, h // 2, w // 2),
              rv.view(b, h // 2, w // 2)), total, ok)
 
@@ -482,14 +550,15 @@ def batch_streams_split(sizes_np: np.ndarray, packed: np.ndarray, b: int,
 
 
 def compress_batch_to_streams(planes: Sequence[np.ndarray],
-                              qtables: torch.Tensor, dct: torch.Tensor
+                              qtables: torch.Tensor, dct: torch.Tensor,
+                              precision: str = "exact"
                               ) -> List[List[Stream]]:
     """Batched (y [B, H, W], u, v [B, H/2, W/2]) uint8 planes -> per-frame
     [(sizes u8, content u8) x3] (file layout), coded on
-    ``qtables.device``."""
+    ``qtables.device`` (``compress_batch``'s routes)."""
     b, h, w = planes[0].shape
     sizes, content = compress_batch(*to_device(planes, qtables.device),
-                                    qtables, dct)
+                                    qtables, dct, precision)
     ny, nc, _ = plane_block_counts(h, w)
     return batch_streams_split(sizes.cpu().numpy(), content.cpu().numpy(),
                                b, ny, nc)

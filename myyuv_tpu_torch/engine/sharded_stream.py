@@ -22,6 +22,10 @@ pixels are cropped away. A shard may hold no live block of a plane.
 Compress queues every shard's K1 before it waits: the lanes of the shards
 of one device are compacted together, one wait a device.
 
+``precision="fast"`` (default "exact"; any other value raises ValueError)
+codes each shard as ``device_stream`` does: F1 then K5 in place of K1, K6
+then F2 in place of K2.
+
 The JAX package's repack/expand steps, continuation ladder, dense A/C
 interchange and executable cache have no counterpart: K1 writes each
 chunk's on-disk bytes, so assembly is slicing and concatenating.
@@ -35,7 +39,6 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..entropy import decode, encode
 from ..entropy import device as edev
 from ..kernels import constants, transform
 from ..kernels.device import plane_block_counts
@@ -88,10 +91,12 @@ def _check_err(err: np.ndarray, shard: int, what: str) -> None:
 
 
 def compress_frame_sharded(mesh: Mesh, planes_np: Sequence[np.ndarray],
-                           qtables_np: Sequence[np.ndarray]) -> List[Stream]:
+                           qtables_np: Sequence[np.ndarray],
+                           precision: str = "exact") -> List[Stream]:
     """(y, u, v) uint8 planes (H, W multiples of 16) -> [(sizes u8,
     content u8)] per plane, coded over the mesh: byte-identical to
-    ``device_stream.compress_frame_to_streams``. ``qtables_np`` holds the
+    ``device_stream.compress_frame_to_streams`` at the same
+    ``precision``. ``qtables_np`` holds the
     three [8, 8] float32 tables (Y, U, V). Raises ValueError on other
     shapes, BitstreamError on a chunk the size field cannot hold."""
     y, u, v = [np.ascontiguousarray(p) for p in planes_np]
@@ -111,7 +116,8 @@ def compress_frame_sharded(mesh: Mesh, planes_np: Sequence[np.ndarray],
                 for p, r in ((y, sl), (u, sl // 2), (v, sl // 2))]
         dct, qt = params[dev]
         queued.setdefault(dev, []).append(
-            (d, encode.dct_encode_blocks(*slab, qt, dct)))
+            (d, device_stream.frame_lanes(*slab, qt, dct,
+                                          precision=precision)))
     shards: List[Tuple[np.ndarray, np.ndarray]] = [None] * n
     for items in queued.values():
         lanes, sizes, err = (torch.cat([out[i] for _, out in items])
@@ -151,12 +157,13 @@ def zero_block_chunk() -> np.ndarray:
 
 def decompress_frame_sharded(mesh: Mesh, streams: Sequence[Stream],
                              qtables_np: Sequence[np.ndarray], h: int,
-                             w: int) -> Tuple[np.ndarray, np.ndarray,
-                                              np.ndarray]:
+                             w: int, precision: str = "exact"
+                             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Per-plane (sizes u8, content u8) -> (y, u, v) uint8 planes of an
     h x w frame, decoded over the mesh (the inverse partitioning of
     ``compress_frame_sharded``): pixel-identical to
-    ``device_stream.decompress_streams_to_frame``. Raises ValueError on a
+    ``device_stream.decompress_streams_to_frame`` at the same
+    ``precision``. Raises ValueError on a
     geometry K2 does not take or a plane whose chunk count is not the
     frame's, BitstreamError on a malformed chunk or a content shorter than
     its sizes."""
@@ -186,8 +193,8 @@ def decompress_frame_sharded(mesh: Mesh, streams: Sequence[Stream],
         content, sizes = device_stream.streams_to_device(segments, dev)
         offsets = torch.cumsum(sizes, 0, dtype=torch.int64) - sizes
         dct, qt = params[dev]
-        queued.append(decode.decode_idct_blocks(content, sizes, offsets, qt,
-                                                dct, sl, w))
+        queued.append(device_stream.frame_planes(
+            content, sizes, offsets, qt, dct, sl, w, precision=precision))
     out = tuple(np.empty((rows, cols), np.uint8) for rows, cols in
                 ((h, w), (h // 2, w // 2), (h // 2, w // 2)))
     for d, (*planes, err) in enumerate(queued):
@@ -200,21 +207,22 @@ def decompress_frame_sharded(mesh: Mesh, streams: Sequence[Stream],
 
 
 def compress_batch_sharded(mesh: Mesh, planes_np: Sequence[np.ndarray],
-                           qtables_np: Sequence[np.ndarray]
-                           ) -> List[List[Stream]]:
+                           qtables_np: Sequence[np.ndarray],
+                           precision: str = "exact") -> List[List[Stream]]:
     """[B, H, W] (+ 2x [B, H/2, W/2]) uint8 planes -> per-frame
     [(sizes u8, content u8) x3], on every process.
 
     Frames split over the processes (``distributed.local_shard``); each
     process codes its frames one by one over ``mesh``, its process-local
-    devices, with ``compress_frame_sharded``; ``distributed.gather_streams``
-    then gives every process every frame's streams. One process: its frames'
-    streams.
+    devices, with ``compress_frame_sharded`` at ``precision``;
+    ``distributed.gather_streams`` then gives every process every frame's
+    streams. One process: its frames' streams.
     """
     y, u, v = [np.ascontiguousarray(p) for p in planes_np]
     b, h, w = y.shape
     lo, hi = distributed.local_shard(b)
-    frames = [compress_frame_sharded(mesh, (y[f], u[f], v[f]), qtables_np)
+    frames = [compress_frame_sharded(mesh, (y[f], u[f], v[f]), qtables_np,
+                                     precision)
               for f in range(lo, hi)]
     if distributed.process_info()[1] == 1:
         return frames

@@ -23,6 +23,11 @@ to back and waits for the card only where a result must reach the host:
 through ``device_stream.roundtrip_scan``: one CUDA graph replay of K
 round trips a call.
 
+The drivers whose JAX counterparts take ``precision`` take it too (default
+"exact"; "fast" runs F1 then K5 to compress, K6 then F2 to decompress, as
+``device_stream`` does; any other value raises ValueError).
+``compress_stream_timed`` takes none, as its JAX counterpart.
+
 Not ported: JAX's ``FLAG_CHUNK`` (one stack at the drain replaces the
 chunked stacks), the cont ladder and its retries (the 256-byte lanes
 always hold a chunk; ``err`` reports the rest, so
@@ -55,14 +60,15 @@ def _drain(*flags: List[torch.Tensor]) -> List[np.ndarray]:
 
 
 def roundtrip_stream(frames: Iterable[Sequence[torch.Tensor]],
-                     qtables: torch.Tensor, dct: torch.Tensor):
+                     qtables: torch.Tensor, dct: torch.Tensor,
+                     precision: str = "exact"):
     """Round trips of device-resident (y, u, v) frames, queued back to back
     with no host sync until the drain. Returns (ok [N] bool, totals [N]
     int64 compressed bytes, elapsed_s on the host clock)."""
     oks, totals = [], []
     t0 = time.perf_counter()
     for y, u, v in frames:
-        *_, total, ok = ds.roundtrip_frame(y, u, v, qtables, dct)
+        *_, total, ok = ds.roundtrip_frame(y, u, v, qtables, dct, precision)
         oks.append(ok)
         totals.append(total)
     ok_np, tot_np = _drain(oks, totals)
@@ -70,15 +76,16 @@ def roundtrip_stream(frames: Iterable[Sequence[torch.Tensor]],
 
 
 def ingest_stream(frames_bgrx: Iterable[torch.Tensor], qtables: torch.Tensor,
-                  dct: torch.Tensor):
+                  dct: torch.Tensor, precision: str = "exact"):
     """The capture pipeline: BGRX device frames -> ``ds.ingest_frame`` (X1,
-    K1, compaction), with no host sync until the drain. Returns (ok [N]
-    bool, totals [N] int64, elapsed_s); the compressed streams are dropped
-    (``compress_stream`` brings them down)."""
+    K1, compaction; X1, F1 and K5 when fast), with no host sync until the
+    drain. Returns (ok [N] bool, totals [N] int64, elapsed_s); the
+    compressed streams are dropped (``compress_stream`` brings them
+    down)."""
     oks, totals = [], []
     t0 = time.perf_counter()
     for px in frames_bgrx:
-        _sizes, _content, total, ok = ds.ingest_frame(px, qtables, dct)
+        _sizes, _content, total, ok = ds._ingest(px, qtables, dct, precision)
         oks.append(ok)
         totals.append(total)
     ok_np, tot_np = _drain(oks, totals)
@@ -87,16 +94,16 @@ def ingest_stream(frames_bgrx: Iterable[torch.Tensor], qtables: torch.Tensor,
 
 def preview_stream(stream_dev: Tuple[torch.Tensor, torch.Tensor],
                    qtables: torch.Tensor, dct: torch.Tensor, h: int, w: int,
-                   n_frames: int):
+                   n_frames: int, precision: str = "exact"):
     """The playback pipeline: one frame's (content, sizes) on the device
     decoded and converted ``n_frames`` times (``ds.preview_frame``: K2,
-    X2), with no host sync until the drain. Returns (ok [N] bool,
-    elapsed_s)."""
+    X2; K6, F2 and X2 when fast), with no host sync until the drain.
+    Returns (ok [N] bool, elapsed_s)."""
     content, sizes = stream_dev
     oks = []
     t0 = time.perf_counter()
     for _ in range(n_frames):
-        _px, ok = ds.preview_frame(content, sizes, qtables, dct, h, w)
+        _px, ok = ds._preview(content, sizes, qtables, dct, h, w, precision)
         oks.append(ok)
     (ok_np,) = _drain(oks)
     return ok_np.astype(bool), time.perf_counter() - t0
@@ -104,7 +111,8 @@ def preview_stream(stream_dev: Tuple[torch.Tensor, torch.Tensor],
 
 def sustained_roundtrip_fps(planes_np: Sequence[np.ndarray],
                             qtables: torch.Tensor, dct: torch.Tensor,
-                            n_frames: int = 112, windows: int = 2):
+                            n_frames: int = 112, windows: int = 2,
+                            precision: str = "exact"):
     """Upload one frame to ``qtables.device`` and stream ``n_frames`` round
     trips of it, ``windows`` times after a warm run. Returns (fps of the
     headline window, ok, compressed bytes of the frame, stats): the
@@ -112,8 +120,8 @@ def sustained_roundtrip_fps(planes_np: Sequence[np.ndarray],
     ``stats`` holds every window's fps and ok count (``windows_fps``,
     ``windows_ok``)."""
     frame = ds.to_device(planes_np, qtables.device)
-    roundtrip_stream([frame], qtables, dct)
-    runs = [roundtrip_stream([frame] * n_frames, qtables, dct)
+    roundtrip_stream([frame], qtables, dct, precision)
+    runs = [roundtrip_stream([frame] * n_frames, qtables, dct, precision)
             for _ in range(max(1, windows))]
     stats = {"windows_fps": [n_frames / e for _, _, e in runs],
              "windows_ok": [int(o.sum()) for o, _, _ in runs]}
@@ -123,7 +131,8 @@ def sustained_roundtrip_fps(planes_np: Sequence[np.ndarray],
 
 
 def roundtrip_scan_stream(stacks: Iterable[Sequence[torch.Tensor]],
-                          qtables: torch.Tensor, dct: torch.Tensor):
+                          qtables: torch.Tensor, dct: torch.Tensor,
+                          precision: str = "exact"):
     """Scans of device-resident K-frame stacks (ys [K, H, W], us, vs
     [K, H/2, W/2]), ``ds.roundtrip_scan`` each, queued back to back with no
     host sync until the drain. Returns (ok [n, K] bool, totals [n, K] int64
@@ -131,7 +140,7 @@ def roundtrip_scan_stream(stacks: Iterable[Sequence[torch.Tensor]],
     oks, totals = [], []
     t0 = time.perf_counter()
     for ys, us, vs in stacks:
-        total, ok = ds.roundtrip_scan(ys, us, vs, qtables, dct)
+        total, ok = ds.roundtrip_scan(ys, us, vs, qtables, dct, precision)
         oks.append(ok)
         totals.append(total)
     ok_np, tot_np = _drain(oks, totals)
@@ -140,22 +149,23 @@ def roundtrip_scan_stream(stacks: Iterable[Sequence[torch.Tensor]],
 
 def sustained_scan_fps(planes_np: Sequence[np.ndarray],
                        qtables: torch.Tensor, dct: torch.Tensor,
-                       n_frames: int = 112, k: int = 8):
+                       n_frames: int = 112, k: int = 8,
+                       precision: str = "exact"):
     """Upload one frame to ``qtables.device``, stack it K times and run
     ceil(n_frames / K) scans of the stack (``roundtrip_scan_stream``) after
     one warm scan, which captures the graph. Returns (fps on the host clock,
     ok of every timed frame, compressed bytes of the frame)."""
     frame = ds.to_device(planes_np, qtables.device)
     stack = [p.expand(k, *p.shape).contiguous() for p in frame]
-    roundtrip_scan_stream([stack], qtables, dct)
+    roundtrip_scan_stream([stack], qtables, dct, precision)
     ok_np, tot_np, elapsed = roundtrip_scan_stream(
-        [stack] * -(-n_frames // k), qtables, dct)
+        [stack] * -(-n_frames // k), qtables, dct, precision)
     return ok_np.size / elapsed, bool(ok_np.all()), int(tot_np[0, 0])
 
 
 def sustained_pipeline_fps(planes_np: Sequence[np.ndarray],
                            qtables: torch.Tensor, dct: torch.Tensor,
-                           n_frames: int = 112):
+                           n_frames: int = 112, precision: str = "exact"):
     """Sustained fps of the capture and playback pipelines over one frame
     on ``qtables.device``: ingest (BGRX -> IYUV -> compress) of the frame's
     own X2 preview, and preview (its stream -> IYUV -> BGRX). Both run once
@@ -163,12 +173,14 @@ def sustained_pipeline_fps(planes_np: Sequence[np.ndarray],
     frame = ds.to_device(planes_np, qtables.device)
     h, w = planes_np[0].shape
     px = convert.iyuv_to_bgrx(*frame)
-    sizes, content = ds.compress_frame(*frame, qtables, dct)
-    ok_w, _, _ = ingest_stream([px], qtables, dct)
-    ok_wp, _ = preview_stream((content, sizes), qtables, dct, h, w, 1)
-    ok_i, _, t_i = ingest_stream([px] * n_frames, qtables, dct)
+    sizes, content = ds.compress_frame(*frame, qtables, dct,
+                                       precision=precision)
+    ok_w, _, _ = ingest_stream([px], qtables, dct, precision)
+    ok_wp, _ = preview_stream((content, sizes), qtables, dct, h, w, 1,
+                              precision)
+    ok_i, _, t_i = ingest_stream([px] * n_frames, qtables, dct, precision)
     ok_p, t_p = preview_stream((content, sizes), qtables, dct, h, w,
-                               n_frames)
+                               n_frames, precision)
     ok = all(bool(o.all()) for o in (ok_w, ok_wp, ok_i, ok_p))
     return n_frames / t_i, n_frames / t_p, ok
 
@@ -186,14 +198,16 @@ def _pull(t: torch.Tensor) -> torch.Tensor:
 
 def compress_stream(frames: Iterable[Sequence[torch.Tensor]],
                     qtables: torch.Tensor, dct: torch.Tensor,
-                    depth: int = 3) -> Iterator[List[ds.Stream]]:
+                    depth: int = 3, precision: str = "exact"
+                    ) -> Iterator[List[ds.Stream]]:
     """Streamed compress of device-resident (y, u, v) frames: yields each
     frame's [(sizes u8, content u8) x 3] plane streams, the bytes of
     ``ds.compress_frame_to_streams``, in order.
 
-    Per frame: ``ds.encode_frame`` (K1 and the sync-free compaction), then
-    non-blocking copies of its sizes and (total, ok) into pinned buffers
-    and one CUDA event. The next frames are queued before the oldest
+    Per frame: ``ds.encode_frame`` (K1, or F1 and K5 when fast, and the
+    sync-free compaction), then non-blocking copies of its sizes and
+    (total, ok) into pinned buffers and one CUDA event. The next frames
+    are queued before the oldest
     pending frame is assembled; ``depth`` bounds the frames in flight.
     Assembly waits for that frame's event only and pulls its
     ``content[:total]`` on a side stream. A chunk longer than 255 bytes
@@ -217,7 +231,8 @@ def compress_stream(frames: Iterable[Sequence[torch.Tensor]],
 
     for y, u, v in frames:
         h, w = y.shape
-        sizes, content, total, ok = ds.encode_frame(y, u, v, qtables, dct)
+        sizes, content, total, ok = ds.encode_frame(y, u, v, qtables, dct,
+                                                    precision)
         flags = torch.stack([total, ok.to(torch.int64)])
         event = None
         if y.is_cuda:

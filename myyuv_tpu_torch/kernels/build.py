@@ -12,8 +12,10 @@ Nothing is built at import.
 
 Flags: ``-fmad=false`` keeps nvcc from contracting a multiply and an add
 into one FMA (the kernels also spell every product and sum of the DCT
-chains with ``__fmul_rn`` / ``__fadd_rn``), and there is no
-``-use_fast_math``: ``__fdiv_rn`` and ``roundf`` stay IEEE-exact.
+chains with ``__fmul_rn`` / ``__fadd_rn``; the fast transforms F1 and F2
+spell their FMAs with ``__fmaf_rn``, which the flag leaves alone), and
+there is no ``-use_fast_math``: ``__fdiv_rn`` and ``roundf`` stay
+IEEE-exact.
 ``-Xptxas -v`` reports each kernel's registers, stack frame and spills
 (``build_all`` returns the reports).
 
@@ -53,6 +55,11 @@ SIGNATURES = {
                      [_P, _P, _P, _I64, _I64, _P, _P, _P, _P]),
     "dequantize_idct": ("myyuv_dequantize_idct",
                         [_P, _I64, _I64, _P, _P, _P, _P, _P, _P]),
+    # F1, F2: precision="fast", K3's and K4's contracts
+    "fast_dct_quantize": ("myyuv_fast_dct_quantize",
+                          [_P, _P, _P, _I64, _I64, _P, _P, _P, _P]),
+    "fast_dequantize_idct": ("myyuv_fast_dequantize_idct",
+                             [_P, _I64, _I64, _P, _P, _P, _P, _P, _P]),
     "huffman_encode": ("myyuv_huffman_encode", [_P, _I64, _P, _P, _P, _P]),
     "huffman_decode": ("myyuv_huffman_decode",
                        [_P, _I64, _P, _P, _I64, _P, _P, _P]),

@@ -1,8 +1,9 @@
 """Plain PyTorch codec transforms, bit-exact with the reference.
 
-Port of ``myyuv_tpu/kernels/device.py`` (the exact path only). Every
-function runs on whatever device its input tensors lie on and reproduces
-the reference's scalar float32 arithmetic bit for bit:
+Port of ``myyuv_tpu/kernels/device.py``. Every function runs on whatever
+device its input tensors lie on and, with ``precision="exact"`` (the
+default), reproduces the reference's scalar float32 arithmetic bit for
+bit:
 
 * the 8x8 DCT-II chains are sequential elementwise f32 ops, one multiply
   and one add per k step, k ascending, each rounded (DCT.cpp:232-277).
@@ -12,6 +13,14 @@ the reference's scalar float32 arithmetic bit for bit:
   ``int16(round_half_away(RN(coef / q)))`` whatever the device's divide;
 * pixel reconstruction rounds half away from zero; the preview
   conversion ``iyuv_to_bgrx`` rounds half to even (``torch.round``).
+
+``precision="fast"`` (the JAX package's MXU einsums, ``_mxu_transform``)
+computes the two 8x8 products as the fast kernels F1 and F2 do, float32
+FMA chains over k ascending (``_fma_product``: broadcast products and
+sums, not ``torch.matmul``, so no TF32 or matmul precision flag governs
+it), and quantizes with a plain division: coefficients and pixels within
++-1 of exact, off only where a value lies within a few ulps of a rounding
+tie.
 
 These are the plain versions of the transform halves of the two CUDA
 kernels (``entropy/encode.py``, ``entropy/decode.py``) and of the two
@@ -59,6 +68,43 @@ def _seq_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def is_fast(precision: str) -> bool:
+    """True for ``"fast"``, False for ``"exact"``. Any other value raises
+    ValueError (the JAX package reads every string but "exact" as fast;
+    the port takes the two names only)."""
+    if precision not in ("exact", "fast"):
+        raise ValueError(f"precision must be 'exact' or 'fast', got "
+                         f"{precision!r}")
+    return precision == "fast"
+
+
+def _fma(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor
+         ) -> torch.Tensor:
+    """float32 a * b + acc rounded once, as CUDA's ``__fmaf_rn``. The
+    product of two floats is exact in float64; TwoSum gives the sum
+    exactly as s + err; s rounded to odd (nudged one float64 ulp towards
+    err when inexact and even) then rounds to the nearest float32 as the
+    exact sum would (Boldo and Melquiond: 53 >= 24 + 2 bits)."""
+    p = a.double() * b.double()
+    c = acc.double()
+    s = p + c
+    bp = s - c
+    err = (c - (s - bp)) + (p - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    nudged = torch.nextafter(s, torch.where(err > 0, torch.inf, -torch.inf)
+                             .to(s.dtype))
+    return torch.where((err != 0) & even, nudged, s).float()
+
+
+def _fma_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[..., 8, 8] @ [..., 8, 8] as F1's and F2's chains: the first
+    product rounded, then one float32 FMA (``_fma``) a step, k ascending."""
+    acc = a[..., :, 0:1] * b[..., 0:1, :]
+    for k in range(1, 8):
+        acc = _fma(acc, a[..., :, k:k + 1], b[..., k:k + 1, :])
+    return acc
+
+
 def _exact_quantize(coef: torch.Tensor, qtable: torch.Tensor) -> torch.Tensor:
     """int16 RHA(RN_f32(coef / q)) with exact boundary semantics.
 
@@ -92,30 +138,41 @@ def _exact_quantize(coef: torch.Tensor, qtable: torch.Tensor) -> torch.Tensor:
 
 
 def dct_quantize(blocks_u8: torch.Tensor, qtable: torch.Tensor,
-                 dct: torch.Tensor | None = None) -> torch.Tensor:
+                 dct: torch.Tensor | None = None,
+                 precision: str = "exact") -> torch.Tensor:
     """[..., 8, 8] uint8 pixels -> [..., 8, 8] int16 quantized coefficients.
 
     applyDCTBlock (DCT.cpp:269-277): centre by -128, C.B, then (C.B).C^T,
-    divide by the table, round half away from zero.
+    divide by the table, round half away from zero. ``precision="fast"``:
+    the products by ``_fma_product`` and ``round_half_away(coef / q)``
+    (within +-1 of exact).
     """
     c = dct_matrix(blocks_u8.device) if dct is None else dct
     x = blocks_u8.to(F32) - 128.0
+    if is_fast(precision):
+        coef = _fma_product(_fma_product(c, x), c.t())
+        return round_half_away(coef / qtable.to(F32)).to(torch.int16)
     t = _seq_matmul(c, x)
     coef = _seq_matmul(t, c.t())
     return _exact_quantize(coef, qtable)
 
 
 def dequantize_idct(coeffs: torch.Tensor, qtable: torch.Tensor,
-                    dct: torch.Tensor | None = None) -> torch.Tensor:
+                    dct: torch.Tensor | None = None,
+                    precision: str = "exact") -> torch.Tensor:
     """[..., 8, 8] int16 coefficients -> [..., 8, 8] uint8 pixels.
 
     restoreDCTBlock (DCT.cpp:325-335): dequantize, C^T.X, then (C^T.X).C,
     then clamp(round(x) + 128, 0, 255) (DCT.cpp:358-361).
+    ``precision="fast"``: the products by ``_fma_product`` (within +-1 of
+    exact).
     """
     c = dct_matrix(coeffs.device) if dct is None else dct
     x = coeffs.to(F32) * qtable.to(F32)
-    t = _seq_matmul(c.t(), x)
-    pix = _seq_matmul(t, c)
+    if is_fast(precision):
+        pix = _fma_product(_fma_product(c.t(), x), c)
+    else:
+        pix = _seq_matmul(_seq_matmul(c.t(), x), c)
     r = round_half_away(pix).to(torch.int32) + 128
     return r.clamp(0, 255).to(torch.uint8)
 

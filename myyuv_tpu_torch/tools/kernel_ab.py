@@ -1,23 +1,26 @@
-"""A/B timing of the six kernels -- K1 (``dct_encode``), K5
+"""A/B timing of the codec kernels -- K1 (``dct_encode``), K5
 (``huffman_encode``), K2 (``decode_idct``), K6 (``huffman_decode``), K3
-(``dct_quantize``) and K4 (``dequantize_idct``) -- across source trees, on
-one CUDA card.
+(``dct_quantize``), K4 (``dequantize_idct``) and the fast transforms F1
+(``fast_dct_quantize``) and F2 (``fast_dequantize_idct``) -- across source
+trees, on one CUDA card.
 
 Run from the repository root on a machine with a CUDA card::
 
     python3 -m myyuv_tpu_torch.tools.kernel_ab [--other LABEL=DIR ...]
 
-Builds the six kernels with ``kernels/build.py`` (all builds in parallel)
+Builds the kernels with ``kernels/build.py`` (all builds in parallel)
 from this checkout's ``csrc/`` (label ``this``) and from each ``DIR`` given
 by ``--other`` (the ``myyuv_tpu_torch/csrc`` of another commit, unpacked
 for example with ``git archive <commit> myyuv_tpu_torch/csrc | tar -x -C
-build/parent``), and prints each build's ptxas registers, stack frame and
-spills. On two 4032x3008 q50 frames -- ``cli``, ``probe.smooth_picture``
+build/parent``; a tree without F1's and F2's sources times K1-K6 only),
+and prints each build's ptxas registers, stack frame and spills. On two
+4032x3008 q50 frames -- ``cli``, ``probe.smooth_picture``
 converted to IYUV as ``-to_yuv IYUV`` does, and ``noise``, uniform random
 planes -- it holds every build's outputs to the plain versions' (the
 encoders' lanes, sizes and err; the decoders' coefficients or planes and
 err, on the plain encoder's stream of the frame; K3's coefficients and
-K4's planes of them), then times every build of each kernel with
+K4's planes of them; F1's coefficients and F2's planes of K3's), then
+times every build of each kernel with
 ``probe.cuda_ms`` (chip_smoke's timer: back-to-back calls queued behind a
 busy card, so the host's work is left out), calling the C entry points
 directly: 7 rounds, the builds in turns (forward, then backward order),
@@ -49,7 +52,8 @@ from myyuv_tpu_torch.kernels import device as kdev
 H, W = 3008, 4032
 REPS = 7
 KERNELS = ("dct_encode", "huffman_encode", "decode_idct", "huffman_decode",
-           "dct_quantize", "dequantize_idct")
+           "dct_quantize", "dequantize_idct", "fast_dct_quantize",
+           "fast_dequantize_idct")
 
 
 def ptxas_summary(log: str) -> str:
@@ -80,10 +84,11 @@ def main(argv=None) -> int:
         trees[label] = Path(path).resolve()
     reports, fns = {}, {}
     for label, csrc in trees.items():
-        logs = build.build_all(KERNELS, csrc)
-        reports[label] = {k: ptxas_summary(logs.get(k, "")) for k in KERNELS}
-        fns[label] = {k: build.open_library(k, csrc) for k in KERNELS}
-        for name in KERNELS:
+        names = [k for k in KERNELS if (csrc / f"{k}.cu").exists()]
+        logs = build.build_all(names, csrc)
+        reports[label] = {k: ptxas_summary(logs.get(k, "")) for k in names}
+        fns[label] = {k: build.open_library(k, csrc) for k in names}
+        for name in names:
             print(f"[ptxas] {label} {name}: {reports[label][name]}")
 
     rng = np.random.default_rng(2026)
@@ -133,9 +138,20 @@ def main(argv=None) -> int:
                                     coeffs, qt, dct, H, W), lambda f: f(
                 coeffs.data_ptr(), H, W, qt.data_ptr(), dct.data_ptr(),
                 y.data_ptr(), u.data_ptr(), v.data_ptr(), stream)),
+            "fast_dct_quantize": ((rows,), (
+                transform.fast_dct_quantize_blocks_plain(*planes, qt, dct),),
+                lambda f: f(*(p.data_ptr() for p in planes), H, W,
+                            qt.data_ptr(), dct.data_ptr(), rows.data_ptr(),
+                            stream)),
+            "fast_dequantize_idct": (
+                (y, u, v), transform.fast_dequantize_idct_blocks_plain(
+                    coeffs, qt, dct, H, W), lambda f: f(
+                    coeffs.data_ptr(), H, W, qt.data_ptr(), dct.data_ptr(),
+                    y.data_ptr(), u.data_ptr(), v.data_ptr(), stream)),
         }
         for name, (got, plain, call) in calls.items():
-            for label in trees:
+            labels = [label for label in trees if name in fns[label]]
+            for label in labels:
                 for t in got:
                     t.fill_(0xAB if t.dtype == torch.uint8 else 77)
                 if call(fns[label][name]):
@@ -145,13 +161,12 @@ def main(argv=None) -> int:
                     if not torch.equal(g, p):
                         raise SystemExit(f"{label} {name} differs from the "
                                          f"plain version on {frame}")
-            times = {label: [] for label in trees}
-            order = list(trees)
+            times = {label: [] for label in labels}
             for r in range(REPS):
-                for label in (order if r % 2 == 0 else order[::-1]):
+                for label in (labels if r % 2 == 0 else labels[::-1]):
                     times[label].append(probe.cuda_ms(
                         lambda: call(fns[label][name]), 1))
-            for label in trees:
+            for label in labels:
                 results[f"{name} {frame} {label}"] = statistics.median(
                     times[label])
         results[f"lanes.zero_ {frame} -"] = probe.cuda_ms(lanes.zero_, REPS)

@@ -24,8 +24,10 @@ Python loop over the shapes takes the place of the JAX package's
 ``lax.scan``; within a shape all 12 triangles test all pixels at once
 ([12, H, W] edge functions, perspective-correct UV, a 1/w z-buffer merged
 shape after shape). In the JAX package it is XLA, not a Pallas kernel, so
-plain PyTorch is its port. Its two small products (``proj @ view`` and the
-vertex transforms) are float32 ``torch.matmul`` in full float32 (TF32 off).
+plain PyTorch is its port. Its small products (``proj @ view`` and the
+vertex transforms) are float32 multiplies summed over k in ascending order
+(``_small_product``), not ``torch.matmul``: no precision flag governs
+them, and the renderer reads and writes no process-wide PyTorch state.
 
 Pixels on triangle edges, at z ties and at texel boundaries may differ
 between devices and from the JAX package's: each side evaluates the same
@@ -201,6 +203,15 @@ def shape_geometry(tex_w: int, tex_h: int, force_cube: bool = False,
     return (v, np.asarray(tris, np.int32), np.asarray(uvs, np.float32))
 
 
+def _small_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[m, k] x [k, n] float32 as products summed over k, ascending: the
+    same arithmetic on every device, under no matmul precision flag."""
+    acc = a[:, 0:1] * b[0:1, :]
+    for k in range(1, a.shape[1]):
+        acc = acc + a[:, k:k + 1] * b[k:k + 1, :]
+    return acc
+
+
 def render_scene(texture_bgrx: torch.Tensor, verts: torch.Tensor,
                  tris: torch.Tensor, uvs: torch.Tensor,
                  positions: torch.Tensor, angles_deg: torch.Tensor,
@@ -210,10 +221,9 @@ def render_scene(texture_bgrx: torch.Tensor, verts: torch.Tensor,
     device of ``texture_bgrx`` (every input lies there: texture [th, tw, 4]
     u8, verts [8, 3], uvs [12, 3, 2], positions [N, 3], angles [N], view
     and proj [4, 4] float32, tris [12, 3] integer)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = texture_bgrx.device
     tris = tris.long()
-    vp = proj @ view                                       # [4, 4]
+    vp = _small_product(proj, view)                        # [4, 4]
     ys = torch.arange(out_h, dtype=F32, device=dev)[:, None] + 0.5
     xs = torch.arange(out_w, dtype=F32, device=dev)[None, :] + 0.5
 
@@ -233,9 +243,10 @@ def render_scene(texture_bgrx: torch.Tensor, verts: torch.Tensor,
         rot_y = torch.stack([torch.stack([ca, zero, sa]),
                              torch.stack([zero, one, zero]),
                              torch.stack([-sa, zero, ca])])
-        world = verts @ rot_y.T + pos[None, :]
-        clip = torch.cat([world, torch.ones((world.shape[0], 1), dtype=F32,
-                                            device=dev)], 1) @ vp.T
+        world = _small_product(verts, rot_y.T) + pos[None, :]
+        clip = _small_product(torch.cat(
+            [world, torch.ones((world.shape[0], 1), dtype=F32, device=dev)],
+            1), vp.T)
         wc = clip[:, 3]
         ok_v = wc > _NEAR                                  # near-plane cull
         wsafe = torch.where(ok_v, wc, one)

@@ -123,3 +123,19 @@ def test_cli_cube_matches_jax_cli(tmp_path, flags):
         total += a.shape[0] * a.shape[1]
     print(f"-cube {' '.join(flags)}: {diff} of {total} pixels differ")
     assert diff / total <= MAX_DIFF_SHARE
+
+
+@pytest.mark.parametrize("flag", [True, False])
+def test_render_scene_leaves_the_tf32_flag_as_it_found_it(flag):
+    """``render_scene`` reads and writes no process-wide PyTorch state:
+    ``allow_tf32`` set True, then False, reads the same after a frame."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+        args = _scene(16, 24, 2, 1)
+        tcube.render_scene(
+            *(torch.from_numpy(np.ascontiguousarray(a)) for a in args),
+            16, 24)
+        assert torch.backends.cuda.matmul.allow_tf32 is flag
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

@@ -7,7 +7,7 @@ present, and run with ``python -m pytest tests/test_torch_gpu.py`` on a
 machine with one (``-k convert`` for X1 and X2, ``-k streaming`` for the
 drivers, ``-k "scan or sweep"`` for the scan and the sweep, ``-k "tree or
 probe or lane"`` for T1-T7, ``-k "sharded or card"`` for the multi-device
-path, the second card and the cube).
+path, the second card and the cube, ``-k fast`` for F1 and F2).
 
 Tolerance: exact equality (bytes, sizes, pixels, error codes, totals,
 flags), except the sweep's PSNR on the card against the CPU's, to 1e-3:
@@ -949,3 +949,133 @@ def test_cube_on_the_card_matches_the_cpu(cuda):
     share = float((frames[0] != frames[1]).any(-1).float().mean())
     print(f"cube card vs CPU: share of differing pixels {share:.3g}")
     assert share <= 1e-3
+
+
+# precision="fast": F1 and F2 against their plain versions (exact: the same
+# FMA chains), and the routes that run them. Against K3 and K4: within +-1,
+# on noise in at most FAST_COEF_SHARE of the coefficients and
+# FAST_PIXEL_SHARE of the pixels (tests/test_torch_fast.py gives the
+# reason): FMA and the exact chains differ where a value lies within a few
+# ulps of a rounding tie.
+FAST_COEF_SHARE, FAST_PIXEL_SHARE = 1e-3, 1e-4
+
+
+def _fast_within(got, want, share=None):
+    """|got - want| <= 1, and, given ``share``, differing in at most that
+    share of the values (held on noise of 4,096 blocks or more only: the
+    contraction-probe blocks are built to sit on rounding ties)."""
+    d = (got.to(torch.int32) - want.to(torch.int32)).abs()
+    assert int(d.max()) <= 1
+    if share is not None:
+        frac = float((d != 0).double().mean())
+        assert frac <= share, frac
+
+
+@pytest.mark.parametrize("q", [1, 10, 50, 90, 100])
+def test_fast_f1_f2_match_plain(rng, cuda, q):
+    """F1 and F2 (``-k fast``) on noise and on the contraction-probe frame,
+    at the transform test shapes and at 736x992, and F2 on random int16
+    rows: equal to their plain versions, and within +-1 of K3 / K4. The
+    shares against K3 / K4 are held on noise at q 10, 50 and 90, where
+    they were measured; at q100 (a table of ones) 1.4e-3 of the noise
+    frame's coefficients sit close enough to a tie to differ."""
+    dct, qt = pipeline.codec_params([q] * 3, cuda)
+    for (h, w), kind in [(s, _frame) for s in _TRANSFORM_SHAPES] + [
+            ((736, 992), _frame), ((736, 992), _noise_frame)]:
+        noise = kind is _noise_frame and q in (10, 50, 90)
+        cs, ps = (FAST_COEF_SHARE, FAST_PIXEL_SHARE) if noise else (None,
+                                                                    None)
+        planes = [torch.from_numpy(p).to(cuda) for p in kind(rng, h, w)]
+        coeffs = transform.fast_dct_quantize_blocks(*planes, qt, dct)
+        assert coeffs.is_cuda and coeffs.dtype == torch.int16
+        assert torch.equal(coeffs, transform.fast_dct_quantize_blocks_plain(
+            *planes, qt, dct))
+        _fast_within(coeffs, transform.dct_quantize_blocks(*planes, qt, dct),
+                     cs)
+        rows = torch.from_numpy(rng.integers(
+            -2048, 2048, coeffs.shape).astype(np.int16)).to(cuda)
+        for c in (coeffs, rows):
+            got = transform.fast_dequantize_idct_blocks(c, qt, dct, h, w)
+            for g, p, e in zip(
+                    got, transform.fast_dequantize_idct_blocks_plain(
+                        c, qt, dct, h, w),
+                    transform.dequantize_idct_blocks(c, qt, dct, h, w)):
+                assert g.is_cuda and torch.equal(g, p)
+                _fast_within(g, e, ps)
+
+
+def _noise_frame(rng, h, w):
+    return [rng.integers(0, 256, s, np.uint8)
+            for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+
+
+def test_fast_routes_launch_f1_k5_k6_f2(rng, cuda, monkeypatch):
+    """The fast frame and scan routes on the card launch F1 then K5 and K6
+    then F2 and nothing else, never the plain versions; their streams
+    decode to F1's coefficients, and a fast scan's graph records K of each
+    of the four."""
+    h, w = 256, 512
+    dct, qt = pipeline.codec_params([50] * 3, cuda)
+    planes = [torch.from_numpy(p).to(cuda) for p in _noise_frame(rng, h, w)]
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain fast transform ran on the card")
+
+    monkeypatch.setattr(transform, "fast_dct_quantize_blocks_plain", refuse)
+    monkeypatch.setattr(transform, "fast_dequantize_idct_blocks_plain",
+                        refuse)
+
+    def counted(fn):
+        before = dict(build.launches)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: n - before[k] for k, n in build.launches.items()
+                     if n != before[k]}
+
+    coeffs = transform.fast_dct_quantize_blocks(*planes, qt, dct)
+    (sizes, content), n = counted(lambda: device_stream.compress_frame(
+        *planes, qt, dct, precision="fast"))
+    assert n == {"fast_dct_quantize": 1, "huffman_encode": 1}
+    offsets = torch.cumsum(sizes, 0, dtype=torch.int64) - sizes
+    assert torch.equal(decode.decode_blocks(content, sizes, offsets)[0],
+                       coeffs)
+    rec, n = counted(lambda: device_stream.decompress_frame(
+        content, sizes, qt, dct, h, w, fused=True, precision="fast"))
+    assert n == {"huffman_decode": 1, "fast_dequantize_idct": 1}
+    want = transform.fast_dequantize_idct_blocks(coeffs, qt, dct, h, w)
+    assert all(torch.equal(g, p) for g, p in zip(rec, want))
+    out, n = counted(lambda: device_stream.roundtrip_frame(
+        *planes, qt, dct, precision="fast"))
+    assert n == {"fast_dct_quantize": 1, "huffman_encode": 1,
+                 "huffman_decode": 1, "fast_dequantize_idct": 1}
+    assert all(torch.equal(g, p) for g, p in zip(out[:3], want))
+    assert int(out[3]) == content.numel() and bool(out[4])
+    k = 3
+    stack = [p.expand(k, *p.shape).contiguous() for p in planes]
+    device_stream.clear_scan_graphs()
+    totals, oks = device_stream.roundtrip_scan(*stack, qt, dct, "fast")
+    graph = device_stream.scan_graph(k, h, w, stack[0].device, "fast")
+    assert graph.launches == {"fast_dct_quantize": k, "huffman_encode": k,
+                              "huffman_decode": k,
+                              "fast_dequantize_idct": k}
+    assert totals.tolist() == [content.numel()] * k and oks.all()
+    assert device_stream.scan_graph(k, h, w, stack[0].device).graph is None
+    device_stream.clear_scan_graphs()
+
+
+def test_plain_fast_transform_ignores_the_tf32_flag(rng, cuda):
+    """F1's plain version on the card gives the same coefficients with
+    ``allow_tf32`` True and False: it runs no matmul."""
+    h, w = 256, 512
+    dct, qt = pipeline.codec_params([90] * 3, cuda)
+    planes = [torch.from_numpy(p).to(cuda) for p in _noise_frame(rng, h, w)]
+    saved = torch.backends.cuda.matmul.allow_tf32
+    outs = []
+    try:
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            outs.append(transform.fast_dct_quantize_blocks_plain(
+                *planes, qt, dct))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert torch.equal(outs[0], outs[1])

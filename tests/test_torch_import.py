@@ -80,3 +80,17 @@ def test_no_jax_import_lines_in_the_port():
             for i, line in enumerate(f.read_text().splitlines(), 1)
             if pat.match(line)]
     assert not hits, hits
+
+
+def test_the_port_sets_no_matmul_precision_flag():
+    """No module of the port assigns ``allow_tf32`` (of matmul or cuDNN)
+    or calls ``set_float32_matmul_precision``: its products run under
+    whatever the caller set, and a call leaves the process as it was."""
+    import re
+    pat = re.compile(r"allow_tf32\s*=(?!=)|set_float32_matmul_precision\s*\("
+                     r"|setattr\([^)]*allow_tf32")
+    hits = [f"{f}:{i}"
+            for f in sorted((REPO / "myyuv_tpu_torch").rglob("*.py"))
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if pat.search(line)]
+    assert not hits, hits
