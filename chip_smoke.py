@@ -13,7 +13,7 @@ failure ending the run with a non-zero exit code:
 2. build of the seventeen kernels, timed, with ptxas's registers, stack
    frame and spills per kernel instance; all seventeen (the lane-group
    encoders K1 and K5, the warp decoders K2 and K6, the group transforms K3
-   and K4 and their fast instances F1 and F2, the colour conversions X1 and
+   and K4, the fast transforms F1 and F2, the colour conversions X1 and
    X2, and T1-T7, the probes of the tools and the decoder's tree stage) must
    use no local memory (0-byte stack frame, no spills);
 3. on ten 4032x3008 frames (five content kinds: noise, gradient, flat,
@@ -143,9 +143,11 @@ failure ending the run with a non-zero exit code:
     routes equal, PSNR within 0.05 dB of the exact sweep); (g)
     ``compress_frame_sharded`` / ``decompress_frame_sharded`` on two shards
     of the card equal to the frame API; (h) F1 and F2 timed beside K3 and
-    K4, their plain versions and the ``torch.matmul`` formulation with TF32
-    off (the ``library_ms`` of the two entries), and the fast routes beside
-    the exact ones on the host clock.
+    K4, warm and on inputs in device memory (``tools/common.py::cold``),
+    with the four kernels' ptxas registers and stack beside the card's
+    name and power limit, their plain versions and the ``torch.matmul``
+    formulation with TF32 off (the ``library_ms`` of the two entries), and
+    the fast routes beside the exact ones on the host clock.
 
 It prints a JSON line with one entry per kernel (its launches on the path
 that drives it -- for F1 and F2 phase 15 (c)'s q50 pair, with
@@ -304,6 +306,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = build.build_all(ALL)
+    ptxas = {}
     for name in ALL:
         build.load(name)
     print(f"[2 build] {len(ALL)} kernels for sm_90a in "
@@ -313,10 +316,11 @@ def main() -> int:
         regs = re.findall(r"Used (\d+) registers", log)
         stack = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
                            r"stores, (\d+) bytes spill loads", log)
-        print(f"[2 ptxas] {name}: "
-              + ("; ".join(f"{r} registers, {s[0]} B stack, {s[1]}/{s[2]} "
-                           f"B spill st/ld" for r, s in zip(regs, stack))
-                 if regs and stack else "no report (library cached)"))
+        ptxas[name] = ("; ".join(f"{r} registers, {s[0]} B stack, "
+                                 f"{s[1]}/{s[2]} B spill st/ld"
+                                 for r, s in zip(regs, stack))
+                       if regs and stack else "no report (library cached)")
+        print(f"[2 ptxas] {name}: {ptxas[name]}")
         check(all(st == ("0", "0", "0") for st in stack),
               f"{name} uses local memory: {stack}")
 
@@ -1168,7 +1172,8 @@ def main() -> int:
                     "noise": [p.cpu().numpy() for p in noise_planes]},
         stack)
     cube_viewer(card, px)
-    fast = fast_path(dev, card, img, planes, noise_planes, stack, rd_coder)
+    fast = fast_path(dev, card, img, planes, noise_planes, stack, rd_coder,
+                     ptxas)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
@@ -1413,7 +1418,7 @@ def cube_viewer(card: str, px: np.ndarray) -> None:
 
 
 def fast_path(dev, card: str, img, planes, noise_planes, stack,
-              rd_exact) -> dict:
+              rd_exact, ptxas: dict) -> dict:
     """Phase 15: precision="fast". (a) F1 and F2 on the CLI and noise 4K
     frames at q 10, 50, 90 against their plain versions and K3 / K4; (b)
     F1's plain version alike with ``allow_tf32`` True and False; (c) the
@@ -1422,15 +1427,16 @@ def fast_path(dev, card: str, img, planes, noise_planes, stack,
     q50 pair and read just after; (d) ``roundtrip_batch`` on the 8 x 1080p
     ``stack``; (e) a fast ``roundtrip_scan`` at K = 8; (f) the fast sweep
     beside the exact one (``rd_exact``); (g) ``compress_frame_sharded`` on
-    the card as two shards; (h) times. Returns F1's and F2's entries of
-    the kernels line."""
+    the card as two shards; (h) times, warm and on inputs in device memory,
+    with ``ptxas``'s report (kernel name: registers, stack, spills) of F1,
+    F2, K3 and K4. Returns F1's and F2's entries of the kernels line."""
     from myyuv_tpu_torch.engine import (batch, device_stream, pipeline,
                                         sharded_stream, sweep)
     from myyuv_tpu_torch.entropy import decode
     from myyuv_tpu_torch.kernels import build, probe, transform
     from myyuv_tpu_torch.kernels import device as kdev
     from myyuv_tpu_torch.parallel import mesh as meshlib
-    from myyuv_tpu_torch.tools.common import bound_ms
+    from myyuv_tpu_torch.tools.common import bound_ms, cold
 
     errs = dict.fromkeys(FAST, 0)
 
@@ -1727,6 +1733,21 @@ def fast_path(dev, card: str, img, planes, noise_planes, stack,
     times["noise F2"] = probe.cuda_ms(
         lambda: transform.fast_dequantize_idct_blocks(noise_c, qt, dct, H4K,
                                                       W4K), REPS)
+    # the same four on inputs in device memory, as the bound by bytes
+    # assumes: each call takes the next of copies rotated past the L2
+    cold_ms = {}
+    for name, fn, args in (
+            ("K3", lambda *p: transform.dct_quantize_blocks(*p, qt, dct),
+             planes),
+            ("fast_dct_quantize",
+             lambda *p: transform.fast_dct_quantize_blocks(*p, qt, dct),
+             planes),
+            ("K4", lambda c: transform.dequantize_idct_blocks(
+                c, qt, dct, H4K, W4K), (c_e,)),
+            ("fast_dequantize_idct",
+             lambda c: transform.fast_dequantize_idct_blocks(
+                 c, qt, dct, H4K, W4K), (c_e,))):
+        cold_ms[name] = probe.cuda_ms(cold(fn, args), REPS)
     bounds = {"fast_dct_quantize": bound_ms(npx + tables + n * 128,
                                             n * DCT_FLOP),
               "fast_dequantize_idct": bound_ms(n * 128 + tables + npx,
@@ -1754,8 +1775,14 @@ def fast_path(dev, card: str, img, planes, noise_planes, stack,
           f"{times['K3']:.4f}, F2 {times['fast_dequantize_idct']:.4f} "
           f"against K4 {times['K4']:.4f} (noise frame: F1 "
           f"{times['noise F1']:.4f} / K3 {times['noise K3']:.4f}, F2 "
-          f"{times['noise F2']:.4f} / K4 {times['noise K4']:.4f}); bound "
-          f"{bounds['fast_dct_quantize'][0]:.4f} ms by "
+          f"{times['noise F2']:.4f} / K4 {times['noise K4']:.4f}); inputs "
+          f"in device memory: F1 {cold_ms['fast_dct_quantize']:.4f}, K3 "
+          f"{cold_ms['K3']:.4f}, F2 {cold_ms['fast_dequantize_idct']:.4f}, "
+          f"K4 {cold_ms['K4']:.4f}; ptxas: " + "; ".join(
+              f"{label} {ptxas[name]}" for label, name in (
+                  ("F1", "fast_dct_quantize"), ("K3", "dct_quantize"),
+                  ("F2", "fast_dequantize_idct"), ("K4", "dequantize_idct")))
+          + f"; bound {bounds['fast_dct_quantize'][0]:.4f} ms by "
           f"{bounds['fast_dct_quantize'][1]}; plain F1 "
           f"{plain['fast_dct_quantize']:.4f}, F2 "
           f"{plain['fast_dequantize_idct']:.4f}; torch.matmul formulation, "
@@ -1773,7 +1800,8 @@ def fast_path(dev, card: str, img, planes, noise_planes, stack,
     return {name: {"launches": launches["main"][name],
                    "max_abs_err": errs[name],
                    "share_differing_from_exact": vs_exact[name],
-                   "ms": times[name], "plain_ms": plain[name],
+                   "ms": times[name], "cold_ms": cold_ms[name],
+                   "plain_ms": plain[name],
                    "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                    "library_ms": library[name],
                    "launches_batch": launches["batch"][name],

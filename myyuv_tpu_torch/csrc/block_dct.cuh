@@ -11,12 +11,7 @@
 // quantize is roundf(__fdiv_rn(coef, q)), IEEE division and half-away
 // rounding, as int16(std::round(coef / q)) in DCT.cpp:273; dequantize is one
 // exact f32 product; pixels are clamp(roundf(x) + 128, 0, 255).
-//
-// kFast = true is precision="fast" (F1 fast_dct_quantize.cu, F2
-// fast_dequantize_idct.cu): each step of a chain after the first product is
-// one __fmaf_rn, rounded once, k ascending; everything else as above. The
-// explicit intrinsic is an FMA whatever -fmad says. No tensor core, no TF32.
-// The exact instances (kFast = false, the default) are the code K1-K4 had.
+// (precision="fast", F1 and F2, has kernels of its own: fast_transform.cuh.)
 #pragma once
 
 #include "codec_common.cuh"
@@ -27,11 +22,10 @@ namespace myyuv {
 constexpr int kTransformThreads = 256;
 constexpr int kTransformGroups = kTransformThreads / 8;
 
-// acc + a * b of a transform chain: two roundings (__fmul_rn, then
-// __fadd_rn) in the exact transforms, one (__fmaf_rn) in the fast ones.
-template <bool kFast>
+// acc + a * b of a transform chain: two roundings, __fmul_rn then
+// __fadd_rn.
 __device__ __forceinline__ float mul_add(float a, float b, float acc) {
-  return kFast ? __fmaf_rn(a, b, acc) : __fadd_rn(acc, __fmul_rn(a, b));
+  return __fadd_rn(acc, __fmul_rn(a, b));
 }
 
 // 8 consecutive floats of 16-byte aligned shared memory as two vector loads.
@@ -66,7 +60,6 @@ __device__ __forceinline__ uint2 load_pixel_row(const uint8_t* px,
 // of C . B and then of the quantized (C . B) . C^T into out, in registers.
 // x is the group's 64-float slice of shared memory for the pixels - 128; c
 // and q are 16-byte aligned. Every lane of the warp calls this.
-template <bool kFast = false>
 __device__ __forceinline__ void dct_quantize_group(uint2 pix, const float* c,
                                                    const float* q, float* x,
                                                    int lane,
@@ -86,7 +79,7 @@ __device__ __forceinline__ void dct_quantize_group(uint2 pix, const float* c,
 #pragma unroll
     for (int k = 0; k < 8; ++k)
       cb[k] = kk == 0 ? __fmul_rn(crow[0], xr[k])
-                      : mul_add<kFast>(crow[kk], xr[k], cb[k]);
+                      : mul_add(crow[kk], xr[k], cb[k]);
   }
   float qr[8];
   load_row(q + lane * 8, qr);
@@ -97,7 +90,7 @@ __device__ __forceinline__ void dct_quantize_group(uint2 pix, const float* c,
     float acc = __fmul_rn(cb[0], cj[0]);
 #pragma unroll
     for (int kk = 1; kk < 8; ++kk)
-      acc = mul_add<kFast>(cb[kk], cj[kk], acc);
+      acc = mul_add(cb[kk], cj[kk], acc);
     out[k] = int16_t(int(roundf(__fdiv_rn(acc, qr[k]))));
   }
 }
@@ -127,7 +120,6 @@ __device__ __forceinline__ void load_idct_regs(const float* c, int lane,
 // of C^T . X and of (C^T . X) . C in registers and stores the row's 8
 // pixels at px + lane * stride, all 0 if bad. q is 16-byte aligned. A group
 // with store false writes nothing. Every lane of the warp calls this.
-template <bool kFast = false>
 __device__ __forceinline__ void dequantize_idct_group(
     uint4 row, const IdctRegs& c, const float* q, float* x, int lane,
     bool store, bool bad, uint8_t* px, int stride) {
@@ -148,7 +140,7 @@ __device__ __forceinline__ void dequantize_idct_group(
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       t[j] = kk == 0 ? __fmul_rn(ccol[0], xr[j])
-                     : mul_add<kFast>(ccol[kk], xr[j], t[j]);
+                     : mul_add(ccol[kk], xr[j], t[j]);
   }
   float acc[8];  // row `lane` of (C^T . X) . C
 #pragma unroll
@@ -156,7 +148,7 @@ __device__ __forceinline__ void dequantize_idct_group(
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       acc[j] = kk == 0 ? __fmul_rn(t[0], c.c[j])
-                       : mul_add<kFast>(t[kk], c.c[kk * 8 + j], acc[j]);
+                       : mul_add(t[kk], c.c[kk * 8 + j], acc[j]);
   }
   uint32_t pix[2] = {0, 0};
 #pragma unroll

@@ -18,22 +18,53 @@
 // a range check.
 // What the design does about it: block_dct.cuh's dct_quantize_group, K1's
 // transform too, so K5(K3(x)) == K1(x), in frame_transform.cuh's
-// dct_quantize_frame (whose fast instance is F1, fast_dct_quantize.cu). A
-// group of 8 lanes takes a block, lane r row r: it reads the row's 8 pixels with one 8-byte load (a warp's
-// four blocks are 8 rows of 32 contiguous bytes), computes row r of both
-// chains in registers, and writes its 8 coefficients with one 16-byte store
-// (a warp writes 512 contiguous bytes). Nothing goes to local memory. The
+// dct_quantize_frame. A group of 8 lanes takes a block, lane r row r: it
+// reads the row's 8 pixels with one 8-byte load (a warp's four blocks are
+// 8 rows of 32 contiguous bytes), computes row r of both chains in
+// registers, and writes its 8 coefficients with one 16-byte store (a warp
+// writes 512 contiguous bytes). Nothing goes to local memory. The
 // grid is the CTAs the card holds at once; each warp walks its own run of
 // blocks four at a time (step_block: no division per block), with the next
 // block's row loaded before the current block's chains.
 
 #include "frame_transform.cuh"
 
-// myyuv::launch_dct_quantize's contract (frame_transform.cuh), exact.
+namespace myyuv {
+namespace {
+
+__global__ void __launch_bounds__(kTransformThreads)
+dct_quantize_kernel(const uint8_t* __restrict__ y,
+                    const uint8_t* __restrict__ u,
+                    const uint8_t* __restrict__ v, int h, int w,
+                    const float* __restrict__ qt,
+                    const float* __restrict__ dct,
+                    int16_t* __restrict__ coeffs) {
+  dct_quantize_frame(y, u, v, h, w, qt, dct, coeffs);
+}
+
+}  // namespace
+}  // namespace myyuv
+
+// y [h, w], u and v [h/2, w/2] u8 planes; qt f32 [3, 64] (Y, U, V tables);
+// dct f32 [64]; output coeffs i16 [N, 64] (16-byte aligned), N =
+// frame_blocks(h, w), blocks Y, then U, then V raster. Launches on `stream`
+// and returns cudaGetLastError().
 extern "C" int myyuv_dct_quantize(const void* y, const void* u, const void* v,
                                   int64_t h, int64_t w, const void* qt,
                                   const void* dct, void* coeffs,
                                   void* stream) {
-  return myyuv::launch_dct_quantize<false>(y, u, v, h, w, qt, dct, coeffs,
-                                           stream);
+  const int64_t n = myyuv::frame_blocks(h, w);
+  if (n > 0) {
+    static std::atomic<int64_t> held[myyuv::kMaxDevices];
+    const unsigned grid = myyuv::resident_grid(
+        reinterpret_cast<const void*>(myyuv::dct_quantize_kernel),
+        myyuv::kTransformThreads, myyuv::kTransformGroups, n, held);
+    myyuv::dct_quantize_kernel<<<grid, myyuv::kTransformThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(y), static_cast<const uint8_t*>(u),
+        static_cast<const uint8_t*>(v), int(h), int(w),
+        static_cast<const float*>(qt), static_cast<const float*>(dct),
+        static_cast<int16_t*>(coeffs));
+  }
+  return int(cudaGetLastError());
 }

@@ -1,9 +1,7 @@
-// The whole-frame transform kernels over block_dct.cuh's group transforms,
-// one template for the exact and the fast instance of each: K3
-// (dct_quantize.cu) and F1 (fast_dct_quantize.cu) run dct_quantize_frame,
-// K4 (dequantize_idct.cu) and F2 (fast_dequantize_idct.cu)
-// dequantize_idct_frame. Each .cu file is the C entry point of one
-// instance; the two instances share their layout, grid and launch.
+// The whole-frame loops of K3 (dct_quantize.cu) and K4
+// (dequantize_idct.cu) over block_dct.cuh's exact group transforms: each
+// .cu file wraps its loop in a kernel of its own and launches it. (The fast
+// transforms F1 and F2 have their own design, fast_transform.cuh.)
 //
 // A group of 8 lanes takes a block, lane r row r. The grid is the CTAs the
 // card holds at once (resident_grid, asked once per device); each warp walks
@@ -16,14 +14,13 @@
 
 namespace myyuv {
 
-template <bool kFast>
-__global__ void __launch_bounds__(kTransformThreads)
-dct_quantize_frame(const uint8_t* __restrict__ y,
-                   const uint8_t* __restrict__ u,
-                   const uint8_t* __restrict__ v, int h, int w,
-                   const float* __restrict__ qt,
-                   const float* __restrict__ dct,
-                   int16_t* __restrict__ coeffs) {
+// K3's kernel body: y [h, w], u and v [h/2, w/2] u8 planes; qt f32 [3, 64];
+// dct f32 [64]; coeffs i16 [N, 64], 16-byte aligned.
+__device__ __forceinline__ void dct_quantize_frame(
+    const uint8_t* __restrict__ y, const uint8_t* __restrict__ u,
+    const uint8_t* __restrict__ v, int h, int w,
+    const float* __restrict__ qt, const float* __restrict__ dct,
+    int16_t* __restrict__ coeffs) {
   __shared__ __align__(16) CodecParams prm;  // read as float4
   __shared__ __align__(16) float x[kTransformGroups][64];
   load_params(prm, dct, qt);  // synchronises the CTA
@@ -46,8 +43,8 @@ dct_quantize_frame(const uint8_t* __restrict__ y,
     pix = plane_row(b + 4 < last);  // the next block's row, in flight
     int16_t row[8];
     __syncwarp();  // the group's previous block is read out of x
-    dct_quantize_group<kFast>(here, prm.c, prm.q + 64 * plane, x[group],
-                              lane, row);
+    dct_quantize_group(here, prm.c, prm.q + 64 * plane, x[group], lane,
+                       row);
     uint32_t word[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k)
@@ -59,13 +56,13 @@ dct_quantize_frame(const uint8_t* __restrict__ y,
   }
 }
 
-template <bool kFast>
-__global__ void __launch_bounds__(kTransformThreads)
-dequantize_idct_frame(const int16_t* __restrict__ coeffs, int h, int w,
-                      const float* __restrict__ qt,
-                      const float* __restrict__ dct,
-                      uint8_t* __restrict__ y, uint8_t* __restrict__ u,
-                      uint8_t* __restrict__ v) {
+// K4's kernel body: coeffs i16 [N, 64], 16-byte aligned; qt f32 [3, 64];
+// dct f32 [64]; y [h, w], u and v [h/2, w/2] u8 planes.
+__device__ __forceinline__ void dequantize_idct_frame(
+    const int16_t* __restrict__ coeffs, int h, int w,
+    const float* __restrict__ qt, const float* __restrict__ dct,
+    uint8_t* __restrict__ y, uint8_t* __restrict__ u,
+    uint8_t* __restrict__ v) {
   __shared__ __align__(16) CodecParams prm;  // read as float4
   __shared__ __align__(16) float x[kTransformGroups][64];
   load_params(prm, dct, qt);  // synchronises the CTA
@@ -88,58 +85,10 @@ dequantize_idct_frame(const int16_t* __restrict__ coeffs, int h, int w,
     next = coeff_row(b + 4);  // the next block's row, in flight
     uint8_t* px = (loc.plane == 0 ? y : loc.plane == 1 ? u : v) + loc.offset;
     __syncwarp();  // the group's previous block is read out of x
-    dequantize_idct_group<kFast>(row, c, prm.q + 64 * loc.plane, x[group],
-                                 lane, b < last, false, px, loc.stride);
+    dequantize_idct_group(row, c, prm.q + 64 * loc.plane, x[group], lane,
+                          b < last, false, px, loc.stride);
     step_block(loc, b, 4, h, w);
   }
-}
-
-// y [h, w], u and v [h/2, w/2] u8 planes; qt f32 [3, 64] (Y, U, V tables);
-// dct f32 [64]; output coeffs i16 [N, 64] (16-byte aligned), N =
-// frame_blocks(h, w), blocks Y, then U, then V raster. Launches on `stream`
-// and returns cudaGetLastError().
-template <bool kFast>
-int launch_dct_quantize(const void* y, const void* u, const void* v,
-                        int64_t h, int64_t w, const void* qt,
-                        const void* dct, void* coeffs, void* stream) {
-  const int64_t n = frame_blocks(h, w);
-  if (n > 0) {
-    static std::atomic<int64_t> held[kMaxDevices];
-    const unsigned grid = resident_grid(
-        reinterpret_cast<const void*>(dct_quantize_frame<kFast>),
-        kTransformThreads, kTransformGroups, n, held);
-    dct_quantize_frame<kFast><<<grid, kTransformThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(y), static_cast<const uint8_t*>(u),
-        static_cast<const uint8_t*>(v), int(h), int(w),
-        static_cast<const float*>(qt), static_cast<const float*>(dct),
-        static_cast<int16_t*>(coeffs));
-  }
-  return int(cudaGetLastError());
-}
-
-// coeffs i16 [N, 64] (16-byte aligned), N = frame_blocks(h, w), blocks Y,
-// then U, then V raster; qt f32 [3, 64]; dct f32 [64]; outputs y [h, w], u
-// and v [h/2, w/2] u8 planes. Launches on `stream` and returns
-// cudaGetLastError().
-template <bool kFast>
-int launch_dequantize_idct(const void* coeffs, int64_t h, int64_t w,
-                           const void* qt, const void* dct, void* y,
-                           void* u, void* v, void* stream) {
-  const int64_t n = frame_blocks(h, w);
-  if (n > 0) {
-    static std::atomic<int64_t> held[kMaxDevices];
-    const unsigned grid = resident_grid(
-        reinterpret_cast<const void*>(dequantize_idct_frame<kFast>),
-        kTransformThreads, kTransformGroups, n, held);
-    dequantize_idct_frame<kFast><<<grid, kTransformThreads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int16_t*>(coeffs), int(h), int(w),
-        static_cast<const float*>(qt), static_cast<const float*>(dct),
-        static_cast<uint8_t*>(y), static_cast<uint8_t*>(u),
-        static_cast<uint8_t*>(v));
-  }
-  return int(cudaGetLastError());
 }
 
 }  // namespace myyuv

@@ -11,9 +11,9 @@ launches ``csrc/dequantize_idct.cu`` (the port of
 ``precision="fast"`` (the JAX package's ``kernels/device.py``
 ``_mxu_transform`` products, :158-209, which no Pallas kernel computes)
 launches F1 ``csrc/fast_dct_quantize.cu`` and F2
-``csrc/fast_dequantize_idct.cu`` instead: the same group transforms with
-FMA-contracted float32 chains, coefficients and pixels within +-1 of
-exact. All four run on tensors on a CUDA device and run their plain
+``csrc/fast_dequantize_idct.cu`` instead: K3's and K4's contracts in
+kernels of their own (``csrc/fast_transform.cuh``) with FMA-contracted
+float32 chains, coefficients and pixels within +-1 of exact. All four run on tensors on a CUDA device and run their plain
 PyTorch versions on tensors on the CPU. There is no fallback: a CUDA
 tensor launches the kernel or raises.
 

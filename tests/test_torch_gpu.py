@@ -971,15 +971,59 @@ def _fast_within(got, want, share=None):
         assert frac <= share, frac
 
 
+# the layouts F1 and F2 take besides whole frames of their own: 968-byte
+# chroma rows (no multiple of 16 bytes), planes that start off every
+# 8-byte boundary (the byte loads and stores), a batch of 3 frames as 3 H
+# rows, and 90 blocks, which leave a partial last round for some warps
+_FAST_LAYOUTS = ["frames", "chroma_rows_968", "odd_offsets", "batch_of_3",
+                 "partial_round"]
+
+
+def _views_at(rng, shapes, offset, cuda):
+    """Random u8 planes of ``shapes`` on the card, each a view that starts
+    ``offset`` + its index bytes into a buffer of its own."""
+    out = []
+    for i, (h, w) in enumerate(shapes):
+        buf = torch.from_numpy(rng.integers(0, 256, h * w + 16,
+                                            np.uint8)).to(cuda)
+        out.append(buf[offset + i:offset + i + h * w].view(h, w))
+    return out
+
+
+@pytest.mark.parametrize("layout", _FAST_LAYOUTS)
 @pytest.mark.parametrize("q", [1, 10, 50, 90, 100])
-def test_fast_f1_f2_match_plain(rng, cuda, q):
-    """F1 and F2 (``-k fast``) on noise and on the contraction-probe frame,
-    at the transform test shapes and at 736x992, and F2 on random int16
-    rows: equal to their plain versions, and within +-1 of K3 / K4. The
-    shares against K3 / K4 are held on noise at q 10, 50 and 90, where
-    they were measured; at q100 (a table of ones) 1.4e-3 of the noise
-    frame's coefficients sit close enough to a tie to differ."""
+def test_fast_f1_f2_match_plain(rng, cuda, q, layout):
+    """F1 and F2 (``-k fast``) equal to their plain versions. ``frames``: on
+    noise and on the contraction-probe frame, at the transform test shapes
+    and at 736x992, and F2 on random int16 rows, also within +-1 of K3 /
+    K4; the shares against K3 / K4 are held on noise at q 10, 50 and 90,
+    where they were measured (at q100, a table of ones, 1.4e-3 of the noise
+    frame's coefficients sit close enough to a tie to differ). The other
+    layouts (``_FAST_LAYOUTS``): F1 on the layout's planes, F2 on F1's
+    coefficients and on random rows, into planes of the same layout."""
     dct, qt = pipeline.codec_params([q] * 3, cuda)
+    if layout != "frames":
+        h, w, offset = {"chroma_rows_968": (1088, 1936, 0),
+                        "odd_offsets": (48, 80, 1),
+                        "batch_of_3": (3 * 1088, 1920, 0),
+                        "partial_round": (48, 80, 0)}[layout]
+        shapes = ((h, w), (h // 2, w // 2), (h // 2, w // 2))
+        planes = _views_at(rng, shapes, offset, cuda)
+        coeffs = transform.fast_dct_quantize_blocks(*planes, qt, dct)
+        assert coeffs.is_cuda and torch.equal(
+            coeffs, transform.fast_dct_quantize_blocks_plain(*planes, qt,
+                                                             dct))
+        rows = torch.from_numpy(rng.integers(
+            -2048, 2048, coeffs.shape).astype(np.int16)).to(cuda)
+        for c in (coeffs, rows):
+            got = _views_at(rng, shapes, offset, cuda)
+            build.launch("fast_dequantize_idct", cuda, c.data_ptr(), h, w,
+                         qt.data_ptr(), dct.data_ptr(),
+                         *(g.data_ptr() for g in got))
+            for g, p in zip(got, transform.fast_dequantize_idct_blocks_plain(
+                    c, qt, dct, h, w)):
+                assert torch.equal(g, p), layout
+        return
     for (h, w), kind in [(s, _frame) for s in _TRANSFORM_SHAPES] + [
             ((736, 992), _frame), ((736, 992), _noise_frame)]:
         noise = kind is _noise_frame and q in (10, 50, 90)
