@@ -5,17 +5,18 @@ Run from the repository root on a machine with a CUDA card::
 
     python3 chip_smoke.py
 
-It builds the seventeen CUDA kernels from ``myyuv_tpu_torch/csrc`` (nvcc, one
+It builds the eighteen CUDA kernels from ``myyuv_tpu_torch/csrc`` (nvcc, one
 process per source, all at once), then, each phase printing one line and any
 failure ending the run with a non-zero exit code:
 
 1. environment: Python, torch, CUDA and nvcc versions, the card;
-2. build of the seventeen kernels, timed, with ptxas's registers, stack
-   frame and spills per kernel instance; all seventeen (the lane-group
+2. build of the eighteen kernels, timed, with ptxas's registers, stack
+   frame and spills per kernel instance; all eighteen (the lane-group
    encoders K1 and K5, the warp decoders K2 and K6, the group transforms K3
    and K4, the fast transforms F1 and F2, the colour conversions X1 and
-   X2, and T1-T7, the probes of the tools and the decoder's tree stage) must
-   use no local memory (0-byte stack frame, no spills);
+   X2, T1-T7, the probes of the tools and the decoder's tree stage, and
+   K1's five measurement instances, ``dct_encode_phases.cu``) must use no
+   local memory (0-byte stack frame, no spills);
 3. on ten 4032x3008 frames (five content kinds: noise, gradient, flat,
    impulse, banded; q50 and q90; the contraction-probe blocks in every
    frame): K1 (csrc/dct_encode.cu), K3 (dct_quantize.cu) and K5
@@ -147,7 +148,19 @@ failure ending the run with a non-zero exit code:
     with the four kernels' ptxas registers and stack beside the card's
     name and power limit, their plain versions and the ``torch.matmul``
     formulation with TF32 off (the ``library_ms`` of the two entries), and
-    the fast routes beside the exact ones on the host clock.
+    the fast routes beside the exact ones on the host clock;
+16. the encoder split (``myyuv_tpu_torch/tools/exp_encphase.py`` and
+    ``exp_encsplit.py``): (a) the counts set to 0 just before and read just
+    after both tools' checks (``run``): each of K1's measurement instances
+    (``dct_encode_phases``: frontonly, merge, groups, lut, serial) on the
+    4032x3008 CLI and noise frames at q50 equal to its plain version and
+    its output what its stand-in makes of K1's (merge's stream decodes to
+    what K1's decodes to); K1 on the flat frame (every plane 128) equal to its
+    plain version, every chunk the 7-byte one-symbol chunk; (b) K1's phase
+    split on both frames (each stage's delta, front+DCT, the DCT alone, the
+    front, the residual; ``probe.cuda_ms`` on inputs in device memory) and
+    K1, K5, ``compress_frame`` and ``decompress_frame`` on the flat, CLI and
+    noise frames, with the content-dependent part K1 - K1(flat).
 
 It prints a JSON line with one entry per kernel (its launches on the path
 that drives it -- for F1 and F2 phase 15 (c)'s q50 pair, with
@@ -155,8 +168,10 @@ that drives it -- for F1 and F2 phase 15 (c)'s q50 pair, with
 (f) and (g), ``share_differing_from_exact`` (from K3 / K4) from (a) and
 ``library_ms`` the ``torch.matmul`` formulation; for T1-T7 the tool path
 of phase 12, with the entry's times summed over a tool's variants (T3's four ops, T4's three forms, T6's
-two layouts) and each variant's under ``variants`` -- and as ``launches_scan`` and ``launches_sweep`` on phase
-11's scans and untimed sweeps, counted from Python, which for the scans
+two layouts) and each variant's under ``variants``; for K1's measurement
+instances phase 16 (a), times summed over the five on the CLI frame and on
+the noise frame, and each under ``variants`` -- and as ``launches_scan``
+and ``launches_sweep`` on phase 11's scans and untimed sweeps, counted from Python, which for the scans
 is the warm body and the capture's record; ``scan_graph_launches``, the
 launches a replay makes, and ``scan_replays``; for K1-K4
 ``launches_sharded``, counted on phase 13 (a) and (b); max abs error
@@ -203,7 +218,9 @@ PROBES = ("lane_shuffle", "bcast_mul", "lane_probes", "fma_probe",
           "huffman_tree", "consume_chain", "dct_chain")
 # F1, F2: the transforms of precision="fast" (phase 15)
 FAST = ("fast_dct_quantize", "fast_dequantize_idct")
-ALL = KERNELS + PROBES + FAST
+# K1's measurement instances (phase 16)
+PHASES = ("dct_encode_phases",)
+ALL = KERNELS + PROBES + FAST + PHASES
 # the kernels of the multi-device path (phase 13)
 SHARDED = ("dct_encode", "decode_idct", "dct_quantize", "dequantize_idct")
 # f32 operations a pixel: X1 3 products and 2 sums of the luma, 2
@@ -240,6 +257,8 @@ REPLACES = {
     # no Pallas kernel: XLA einsums of the fast path
     "fast_dct_quantize": "myyuv_tpu/kernels/device.py:158",
     "fast_dequantize_idct": "myyuv_tpu/kernels/device.py:188",
+    # dct_encode_words_packed with ablate != "": _encode_body's ablations
+    "dct_encode_phases": "myyuv_tpu/entropy/pallas_encode8.py:640",
 }
 
 
@@ -1174,6 +1193,7 @@ def main() -> int:
     cube_viewer(card, px)
     fast = fast_path(dev, card, img, planes, noise_planes, stack, rd_coder,
                      ptxas)
+    phases = encoder_split(dev, card)
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
@@ -1201,7 +1221,11 @@ def main() -> int:
         {"name": name, "route": "cuda",
          "source": f"myyuv_tpu_torch/csrc/{name}.cu",
          "replaces": REPLACES[name], **fast[name]}
-        for name in FAST]}))
+        for name in FAST] + [
+        {"name": name, "route": "cuda",
+         "source": f"myyuv_tpu_torch/csrc/{name}.cu",
+         "replaces": REPLACES[name], **phases}
+        for name in PHASES]}))
     print(common.card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1808,6 +1832,58 @@ def fast_path(dev, card: str, img, planes, noise_planes, stack,
                    "launches_sweep": launches["sweep"][name],
                    "launches_sharded": launches["sharded"][name]}
             for name in FAST}
+
+
+def encoder_split(dev, card: str) -> dict:
+    """Phase 16: K1's measurement instances through the two encoder tools.
+    (a) ``exp_encphase.run`` and ``exp_encsplit.run`` on the card, the
+    counts set to 0 just before and read just after; (b) their times and
+    the tools' lines. Returns the kernels line's ``dct_encode_phases``
+    entry."""
+    from myyuv_tpu_torch.kernels import build
+    from myyuv_tpu_torch.tools import exp_encphase, exp_encsplit
+
+    t0 = time.perf_counter()
+    reset_launches()
+    ran = exp_encphase.run(dev)
+    flat = exp_encsplit.run(dev)
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    check(launches["dct_encode_phases"] > 0,
+          f"dct_encode_phases never launched on the tool path: {launches}")
+    for frame in ("cli", "noise"):
+        for var, r in ran[frame].items():
+            check(r["exact"], f"K1's {var} instance differs from its plain "
+                  f"version on the {frame} frame")
+            check(r["stand_in"], f"K1's {var} instance is not what its "
+                  f"stand-in makes of K1 on the {frame} frame")
+    check(ran["max_abs_err"] == 0, "K1's instances differ from plain")
+    check(flat["exact"] and flat["flat_one_symbol"],
+          f"K1 on the flat frame: {flat}")
+    print(f"[16 encoder split] {W4K}x{H4K} CLI and noise frames at q50: "
+          f"K1's instances {', '.join(ran['cli'])} == their plain versions "
+          f"and their stand-ins (merge's stream decodes to what K1's "
+          f"decodes to); cansort {ran['cansort']}; K1 on the flat frame "
+          f"== plain, every chunk {exp_encsplit.FLAT_CHUNK} bytes; launches "
+          f"{launches}; {time.perf_counter() - t0:.1f} s", flush=True)
+    split = exp_encphase.times(dev)
+    for line in exp_encphase.report(card, split):
+        print(line)
+    for line in exp_encsplit.report(card, exp_encsplit.times(dev)):
+        print(line, flush=True)
+
+    def summed(frame, key):
+        return sum(v[key] for v in split[frame]["variants"].values())
+
+    return {"launches": launches["dct_encode_phases"],
+            "max_abs_err": ran["max_abs_err"],
+            "ms": summed("cli", "ms"), "plain_ms": summed("cli", "plain_ms"),
+            "noise_ms": summed("noise", "ms"),
+            "bound_ms": summed("cli", "bound_ms"),
+            "bound_by": split["cli"]["variants"]["merge"]["bound_by"],
+            "library_ms": None,
+            "variants": {frame: split[frame]["variants"]
+                         for frame in split}}
 
 
 def gloo_worker(argv) -> int:

@@ -27,8 +27,10 @@ Layout (each module is the counterpart of ``myyuv_tpu``'s of that name):
 """
 
 from .formats.bmp import BMPImage
-from .formats.yuv import Compressions, FourccFormats, YUVImage
+from .formats.yuv import (Compressions, FourccFormats, YUVImage, fourcc,
+                          is_implemented)
 
-__all__ = ["BMPImage", "YUVImage", "FourccFormats", "Compressions"]
+__all__ = ["BMPImage", "YUVImage", "FourccFormats", "Compressions", "fourcc",
+           "is_implemented"]
 
 __version__ = "0.1.0"

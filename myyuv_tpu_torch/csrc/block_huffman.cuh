@@ -54,6 +54,36 @@ constexpr int kEncodeGroups = kEncodeThreads / kEncodeLanes;  // blocks a CTA
 constexpr int kEncodeMinCtas = 6;
 constexpr unsigned kWarpMask = 0xffffffffu;
 
+// The stage an instance of the encoder leaves out. kNone is the production
+// body of K1 and K5; the others are K1's measurement instances
+// (dct_encode_phases.cu), each the counterpart of one `ablate` body of
+// myyuv_tpu/entropy/pallas_encode8.py::_encode_body (:158). An instance
+// keeps every loop bound a later stage reads (msg_len, warp_rounds, n_sym),
+// writes only its own outputs and reads no scratch it did not write; where
+// the stage it leaves out fed a later one, it writes the stand-in named
+// here (entropy/device.py::encode_lanes, `skip`, is its plain version):
+enum class EncodePhase : int {
+  kNone = 0,
+  // stages 1-2 and stage 3's weight ranks, then stop: size n_sym, err 0, a
+  // zero lane (JAX's "frontonly", :237-243)
+  kFrontOnly = 1,
+  // no huffman_tree: every symbol takes the length of a fixed-length code
+  // of n_sym leaves, ceil(log2 n_sym) (1 for n_sym <= 2), so the chunk stays
+  // a valid stream of the same coefficients (JAX's "merge", :348-352)
+  kMerge = 2,
+  // no stage-5 tree groups and code assignment: the tree section's bits
+  // stay 0 (its size is stage 4's), every code is 0 (JAX's "groups",
+  // :393-397)
+  kGroups = 3,
+  // no per-position lookups of the symbol index, length and code: each
+  // message position takes a 1-bit code, the low bit of its value, read
+  // back from the message (JAX's "lut", :480-482)
+  kLut = 4,
+  // no payload bit writes: the payload's bits stay 0, its lengths are still
+  // scanned (JAX's "serial", :533-537)
+  kSerial = 5,
+};
+
 // One group's working set in shared memory (1,104 bytes). K1's pixels
 // share storage with the Huffman arrays, which are written only after the
 // message exists.
@@ -147,7 +177,9 @@ __device__ __forceinline__ void huffman_tree(EncodeScratch& s, int n) {
 // block b's lane, size and error flag: err 1, and a zero lane, for a chunk
 // the u8 size field cannot hold (no int16 input makes one). Every lane of
 // the warp calls this; a group with active false (past the last block)
-// codes its message and stores nothing.
+// codes its message and stores nothing. kSkip leaves one stage out
+// (EncodePhase).
+template <EncodePhase kSkip = EncodePhase::kNone>
 __device__ __forceinline__ void encode_group_to_lane(
     EncodeScratch& s, int lane, bool active, int64_t b, uint8_t* lanes,
     int32_t* sizes, int32_t* err) {
@@ -157,6 +189,9 @@ __device__ __forceinline__ void encode_group_to_lane(
   s.len_mask[lane] = 0;
   for (int i = lane; i < 64 / 4; i += 8)
     reinterpret_cast<uint32_t*>(s.huff.seen.cnt)[i] = 0;
+  if constexpr (kSkip == EncodePhase::kGroups)  // the codes' stand-in
+    for (int i = lane; i < 64 / 4; i += 8)
+      reinterpret_cast<uint32_t*>(s.huff.code)[i] = 0;
   __syncwarp();
 
   // 1. message, trailing zeros trimmed
@@ -214,9 +249,11 @@ __device__ __forceinline__ void encode_group_to_lane(
   }
   __syncwarp();
   int sidx[8];
+  if constexpr (kSkip != EncodePhase::kLut) {
 #pragma unroll
-  for (int k = 0; k < 8; ++k)
-    sidx[k] = k * 8 + lane < msg_len ? s.huff.seen.rank[entry[k]] : 0;
+    for (int k = 0; k < 8; ++k)
+      sidx[k] = k * 8 + lane < msg_len ? s.huff.seen.rank[entry[k]] : 0;
+  }
   __syncwarp();  // the tree reuses `seen`
 
   // 3. code lengths: leaf index = stable rank by weight
@@ -231,7 +268,19 @@ __device__ __forceinline__ void encode_group_to_lane(
     s.huff.tree.leafw[wr[k]] = s.huff.freq[sk];
   }
   __syncwarp();
-  if (lane == 0 && n_sym > 1) huffman_tree(s, n_sym);
+  if constexpr (kSkip == EncodePhase::kFrontOnly) {
+    if (!active) return;
+    uint4* dst = reinterpret_cast<uint4*>(lanes + b * 4 * kLaneWords);
+    for (int i = lane; i < kLaneWords / 4; i += 8)
+      dst[i] = make_uint4(0, 0, 0, 0);
+    if (lane == 0) {
+      sizes[b] = n_sym;
+      err[b] = 0;
+    }
+    return;
+  }
+  if constexpr (kSkip != EncodePhase::kMerge)
+    if (lane == 0 && n_sym > 1) huffman_tree(s, n_sym);
   __syncwarp();
   int len[8];
 #pragma unroll
@@ -239,8 +288,11 @@ __device__ __forceinline__ void encode_group_to_lane(
     len[k] = 0;
     const int sk = k * 8 + lane;
     if (sk >= n_sym) continue;
-    len[k] = n_sym == 1 ? 1
-                        : s.huff.tree.depth[s.huff.tree.parent[wr[k]] - n_sym] + 1;
+    if constexpr (kSkip == EncodePhase::kMerge)
+      len[k] = n_sym <= 2 ? 1 : 32 - __clz(n_sym - 1);
+    else
+      len[k] = n_sym == 1 ? 1
+                          : s.huff.tree.depth[s.huff.tree.parent[wr[k]] - n_sym] + 1;
     s.huff.len[sk] = len[k];
     atomicOr(&s.len_mask[len[k] - 1], 1ull << sk);
   }
@@ -258,20 +310,22 @@ __device__ __forceinline__ void encode_group_to_lane(
   __syncwarp();
 
   // 5. tree groups (runs of one length, 32 symbols at most) and codes
+  if constexpr (kSkip != EncodePhase::kGroups) {
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int sk = k * 8 + lane;
-    if (sk >= n_sym) continue;
-    const int l1 = len[k] - 1;
-    const unsigned long long same = s.len_mask[l1];
-    const int idx = __popcll(same & ((1ull << sk) - 1));
-    s.huff.code[sk] = s.huff.first[l1] + idx;
-    const int at = 3 + s.huff.tree_off[l1] + 45 * (idx >> 5);
-    if ((idx & 31) == 0)
-      or_bits(s.words, 8 * at,
-              (l1 << 5) | (min(32, __popcll(same) - idx) - 1), 8);
-    or_bits(s.words, 8 * (at + 1) + 11 * (idx & 31),
-            uint32_t(s.huff.sym[sk]) & 0x7FFu, 11);
+    for (int k = 0; k < 8; ++k) {
+      const int sk = k * 8 + lane;
+      if (sk >= n_sym) continue;
+      const int l1 = len[k] - 1;
+      const unsigned long long same = s.len_mask[l1];
+      const int idx = __popcll(same & ((1ull << sk) - 1));
+      s.huff.code[sk] = s.huff.first[l1] + idx;
+      const int at = 3 + s.huff.tree_off[l1] + 45 * (idx >> 5);
+      if ((idx & 31) == 0)
+        or_bits(s.words, 8 * at,
+                (l1 << 5) | (min(32, __popcll(same) - idx) - 1), 8);
+      or_bits(s.words, 8 * (at + 1) + 11 * (idx & 31),
+              uint32_t(s.huff.sym[sk]) & 0x7FFu, 11);
+    }
   }
   __syncwarp();
   // payload: each code MSB-first at its position's bit offset
@@ -281,11 +335,21 @@ __device__ __forceinline__ void encode_group_to_lane(
   for (int k = 0; k < 8; ++k) {
     if (k >= warp_rounds) break;
     const bool valid = k * 8 + lane < msg_len;
-    const int plen = valid ? s.huff.len[sidx[k]] : 0;
+    int plen;
+    if constexpr (kSkip == EncodePhase::kLut)
+      plen = valid ? 1 : 0;
+    else
+      plen = valid ? s.huff.len[sidx[k]] : 0;
     const int end = group_scan(plen, lane);
-    if (valid)
-      or_bits(s.words, pbit + enc_bits + end - plen,
-              __brev(uint32_t(s.huff.code[sidx[k]])) >> (32 - plen), plen);
+    if constexpr (kSkip == EncodePhase::kLut) {
+      if (valid)
+        or_bits(s.words, pbit + enc_bits + end - plen,
+                uint32_t(s.msg[k * 8 + lane]) & 1u, plen);
+    } else if constexpr (kSkip != EncodePhase::kSerial) {
+      if (valid)
+        or_bits(s.words, pbit + enc_bits + end - plen,
+                __brev(uint32_t(s.huff.code[sidx[k]])) >> (32 - plen), plen);
+    }
     enc_bits += __shfl_sync(kWarpMask, end, 7, 8);
   }
   if (lane == 0)

@@ -55,8 +55,8 @@ def _excl_cumsum(x: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(x, dim=1, dtype=I32) - x
 
 
-def encode_lanes(coeffs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
-                                               torch.Tensor]:
+def encode_lanes(coeffs: torch.Tensor, skip: str = ""
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """[N, 64] int16 row-major coefficients -> (lanes u8 [N, 256], sizes
     i32 [N], err i32 [N]).
 
@@ -64,6 +64,15 @@ def encode_lanes(coeffs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
     symbols are the full int16 values, each stored as its low 11 bits
     (native's ``& 0x7FF``). ``err`` is 1 only for a chunk longer than the
     format's 255 bytes (its lane is then zero); no int16 input makes one.
+
+    ``skip`` names a stage to leave out, as K1's measurement instances do
+    (``csrc/block_huffman.cuh::EncodePhase``; ``""`` leaves none out):
+    "frontonly" stops after the symbols and their weights (size n_sym,
+    err 0, a zero lane); "merge" gives every symbol the length
+    ceil(log2 n_sym) (1 for n_sym <= 2); "groups" leaves the tree
+    section's bits 0 and every code 0; "lut" gives each message position
+    a 1-bit code, its value's low bit; "serial" leaves the payload's bits
+    0.
     """
     dev = coeffs.device
     n = coeffs.shape[0]
@@ -90,6 +99,9 @@ def encode_lanes(coeffs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
         1, torch.where(is_new, gid, 64).long(), sv)[:, :64]
     gorig = torch.zeros((n, 64), dtype=I32, device=dev).scatter_(
         1, sidx, torch.where(valid, gid, 0))        # group per message pos
+    if skip == "frontonly":
+        return (torch.zeros((n, LANE), dtype=torch.uint8, device=dev), n_sym,
+                torch.zeros_like(n_sym))
 
     # optimal lengths: stable sort by weight, two-queue merge (leaf wins
     # ties), depths by a descending sweep over node ids. Node ids: sorted
@@ -97,34 +109,12 @@ def encode_lanes(coeffs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
     in_range = pos64 < n_sym[:, None]
     leafw, order = torch.sort(torch.where(in_range, freq, _BIG), dim=1,
                               stable=True)
-    zero = torch.zeros(n, dtype=I32, device=dev)
-    lh, ih, it = zero.clone(), zero.clone(), zero.clone()
-    intw = torch.full((n, 65), _BIG, dtype=I32, device=dev)
-    parent = torch.zeros((n, 129), dtype=I32, device=dev)
-    for _ in range(63):
-        active = it < n_sym - 1
-        picks, wsum = [], zero
-        for _p in range(2):
-            lw = leafw.gather(1, lh.clamp(max=63).long()[:, None])[:, 0]
-            iw = intw.gather(1, ih.clamp(max=63).long()[:, None])[:, 0]
-            take_leaf = (lh < n_sym) & ((ih >= it) | (lw <= iw))
-            picks.append(torch.where(take_leaf, lh, 64 + ih))
-            wsum = wsum + torch.where(take_leaf, lw, iw)
-            lh = lh + (take_leaf & active).to(I32)
-            ih = ih + (~take_leaf & active).to(I32)
-        for node in picks:
-            parent.scatter_(1, torch.where(active, node, 128).long()[:, None],
-                            (64 + it)[:, None])
-        intw.scatter_(1, torch.where(active, it, 64).long()[:, None],
-                      wsum[:, None])
-        it = it + active.to(I32)
-    root = 64 + n_sym - 2
-    depth = torch.zeros((n, 129), dtype=I32, device=dev)
-    for nid in range(126, 63, -1):
-        pd = depth.gather(1, parent[:, nid:nid + 1].long())[:, 0] + 1
-        depth[:, nid] = torch.where(root == nid, 0, pd)
-    leaf_len = depth.gather(1, parent[:, :64].long()) + 1
-    leaf_len = torch.where(n_sym[:, None] == 1, 1, leaf_len)
+    if skip == "merge":
+        # ceil(log2 n_sym) for n_sym <= 64, at least 1
+        fixed = sum(((1 << t) < n_sym).to(I32) for t in range(6))
+        leaf_len = fixed.clamp(min=1)[:, None].expand(n, 64)
+    else:
+        leaf_len = _huffman_lengths(leafw, n_sym)
     glen = torch.zeros((n, 65), dtype=I32, device=dev).scatter_(
         1, torch.where(in_range, order, 64).long(), leaf_len)[:, :64]
 
@@ -137,7 +127,10 @@ def encode_lanes(coeffs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
     code_c = _excl_cumsum(kraft) >> (8 - len_c)
     gcode = torch.zeros((n, 65), dtype=I32, device=dev).scatter_(
         1, torch.where(in_range, corder, 64), code_c)[:, :64]
-    enc_bits = torch.where(in_range, freq * glen, 0).sum(dim=1, dtype=I32)
+    if skip == "groups":
+        gcode = torch.zeros_like(gcode)
+    enc_bits = (mlen.to(I32) if skip == "lut" else
+                torch.where(in_range, freq * glen, 0).sum(dim=1, dtype=I32))
 
     # tree groups: runs of equal length in canonical order, <= 32 per group
     prev_len = torch.cat([torch.full((n, 1), -1, dtype=I32, device=dev),
@@ -168,24 +161,67 @@ def encode_lanes(coeffs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
         idx = torch.where(mask, byte_pos.clamp(0, LANE + 6), LANE + 7)
         canvas.scatter_add_(1, idx.long(), torch.where(mask, val, 0))
 
-    g_off = 3 + goff.gather(1, tgid_s.clamp(max=63))
-    hdr = ((len_c - 1) << 5) | (gcnt.gather(1, tgid_s.clamp(max=63)) - 1)
-    add(g_off, hdr, grp_start)
-    sbit = idx_in_grp * 11
-    sval = (sym_c & 0x7FF) << (sbit & 7)
-    for k in range(3):
-        add(g_off + 1 + (sbit >> 3) + k, (sval >> (8 * k)) & 0xFF, in_range)
-    plen = glen.gather(1, gorig.long())
+    if skip != "groups":
+        g_off = 3 + goff.gather(1, tgid_s.clamp(max=63))
+        hdr = ((len_c - 1) << 5) | (gcnt.gather(1, tgid_s.clamp(max=63)) - 1)
+        add(g_off, hdr, grp_start)
+        sbit = idx_in_grp * 11
+        sval = (sym_c & 0x7FF) << (sbit & 7)
+        for k in range(3):
+            add(g_off + 1 + (sbit >> 3) + k, (sval >> (8 * k)) & 0xFF,
+                in_range)
+    if skip == "lut":
+        plen, rcode = valid.to(I32), m & 1
+    else:
+        plen = glen.gather(1, gorig.long())
+        rcode = _bitrev8(gcode.gather(1, gorig.long())) >> (8 - plen)
     prev_bits = _excl_cumsum(torch.where(valid, plen, 0))
-    rcode = _bitrev8(gcode.gather(1, gorig.long())) >> (8 - plen)
     pbit = (3 + tree_size)[:, None] * 8 + prev_bits
     pval = rcode << (pbit & 7)
-    for k in range(2):
-        add((pbit >> 3) + k, (pval >> (8 * k)) & 0xFF, valid)
+    if skip != "serial":
+        for k in range(2):
+            add((pbit >> 3) + k, (pval >> (8 * k)) & 0xFF, valid)
 
     err = (sizes > 255).to(I32)
     lanes = torch.where(err[:, None] != 0, 0, canvas[:, :LANE])
     return lanes.to(torch.uint8), sizes, err
+
+
+def _huffman_lengths(leafw: torch.Tensor, n_sym: torch.Tensor
+                     ) -> torch.Tensor:
+    """Code lengths [N, 64] of the sorted leaves (weights ``leafw``, the
+    first n_sym of each row real): native's two-queue merge (a leaf wins a
+    tie), then the depths by a descending sweep over node ids. Node ids:
+    sorted leaves 0..63, internal node k at 64 + k."""
+    n, dev = leafw.shape[0], leafw.device
+    zero = torch.zeros(n, dtype=I32, device=dev)
+    lh, ih, it = zero.clone(), zero.clone(), zero.clone()
+    intw = torch.full((n, 65), _BIG, dtype=I32, device=dev)
+    parent = torch.zeros((n, 129), dtype=I32, device=dev)
+    for _ in range(63):
+        active = it < n_sym - 1
+        picks, wsum = [], zero
+        for _p in range(2):
+            lw = leafw.gather(1, lh.clamp(max=63).long()[:, None])[:, 0]
+            iw = intw.gather(1, ih.clamp(max=63).long()[:, None])[:, 0]
+            take_leaf = (lh < n_sym) & ((ih >= it) | (lw <= iw))
+            picks.append(torch.where(take_leaf, lh, 64 + ih))
+            wsum = wsum + torch.where(take_leaf, lw, iw)
+            lh = lh + (take_leaf & active).to(I32)
+            ih = ih + (~take_leaf & active).to(I32)
+        for node in picks:
+            parent.scatter_(1, torch.where(active, node, 128).long()[:, None],
+                            (64 + it)[:, None])
+        intw.scatter_(1, torch.where(active, it, 64).long()[:, None],
+                      wsum[:, None])
+        it = it + active.to(I32)
+    root = 64 + n_sym - 2
+    depth = torch.zeros((n, 129), dtype=I32, device=dev)
+    for nid in range(126, 63, -1):
+        pd = depth.gather(1, parent[:, nid:nid + 1].long())[:, 0] + 1
+        depth[:, nid] = torch.where(root == nid, 0, pd)
+    leaf_len = depth.gather(1, parent[:, :64].long()) + 1
+    return torch.where(n_sym[:, None] == 1, 1, leaf_len)
 
 
 def gather_lanes(content: torch.Tensor, sizes: torch.Tensor,

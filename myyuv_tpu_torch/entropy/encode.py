@@ -4,9 +4,12 @@
 ``myyuv_tpu/entropy/pallas_encode8.py::_dct_encode_kernel8``);
 ``encode_blocks`` launches ``csrc/huffman_encode.cu`` (the port of
 ``pallas_encode8.py::_encode_kernel8`` and of its entry point
-``entropy/pallas_encode.py::_encode_kernel``). Both run on tensors on a
-CUDA device and run their plain PyTorch versions on tensors on the CPU.
-There is no fallback: a CUDA tensor launches the kernel or raises.
+``entropy/pallas_encode.py::_encode_kernel``); ``dct_encode_phase``
+launches ``csrc/dct_encode_phases.cu``, K1 with one stage of its encoder
+left out (the port of ``_dct_encode_kernel8``'s ``ablate`` bodies), for
+``tools/exp_encphase.py``'s time split. They run on tensors on a CUDA
+device and run their plain PyTorch versions on tensors on the CPU. There
+is no fallback: a CUDA tensor launches the kernel or raises.
 
 Output contract of both: (lanes u8 [N, 256], sizes i32 [N], err i32 [N]);
 lane b holds chunk b's on-disk bytes, zero past ``sizes[b]``; ``err[b]`` is
@@ -24,6 +27,9 @@ from ..kernels import transform
 from . import device as edev
 
 Lanes = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+# the stages K1's measurement instances leave out, in the order of their
+# variant numbers 1..5 (csrc/block_huffman.cuh::EncodePhase)
+PHASE_VARIANTS = ("frontonly", "merge", "groups", "lut", "serial")
 
 
 def _outputs(n: int, dev: torch.device) -> Lanes:
@@ -55,6 +61,39 @@ def dct_encode_blocks(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                  v.data_ptr(), h, w, qtables.data_ptr(), dct.data_ptr(),
                  lanes.data_ptr(), sizes.data_ptr(), err.data_ptr())
     return lanes, sizes, err
+
+
+def dct_encode_phase_plain(y, u, v, qtables, dct, variant: str) -> Lanes:
+    """The plain PyTorch version of K1's ``variant`` instance."""
+    _check_variant(variant)
+    return edev.encode_lanes(
+        transform.dct_quantize_blocks_plain(y, u, v, qtables, dct),
+        skip=variant)
+
+
+def dct_encode_phase(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                     qtables: torch.Tensor, dct: torch.Tensor,
+                     variant: str) -> Lanes:
+    """``dct_encode_blocks`` with the encoder stage ``variant`` (one of
+    ``PHASE_VARIANTS``) left out, as ``entropy/device.py::encode_lanes``'s
+    ``skip`` describes: a measurement body, not a codec. Same arguments and
+    output shapes; raises ValueError for another variant."""
+    _check_variant(variant)
+    h, w = transform.check_frame(y, u, v, qtables, dct)
+    if build.on_cpu(y.device, "dct_encode_phases"):
+        return dct_encode_phase_plain(y, u, v, qtables, dct, variant)
+    lanes, sizes, err = _outputs(transform.frame_blocks(h, w), y.device)
+    build.launch("dct_encode_phases", y.device, y.data_ptr(), u.data_ptr(),
+                 v.data_ptr(), h, w, qtables.data_ptr(), dct.data_ptr(),
+                 lanes.data_ptr(), sizes.data_ptr(), err.data_ptr(),
+                 PHASE_VARIANTS.index(variant) + 1)
+    return lanes, sizes, err
+
+
+def _check_variant(variant: str) -> None:
+    if variant not in PHASE_VARIANTS:
+        raise ValueError(f"unknown encoder phase variant {variant!r}; "
+                         f"one of {PHASE_VARIANTS}")
 
 
 def encode_blocks(coeffs: torch.Tensor) -> Lanes:

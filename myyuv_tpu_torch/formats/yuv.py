@@ -4,9 +4,10 @@ Port of ``myyuv_tpu/formats/yuv.py`` (the reference's
 ``myyuv_lib/myyuv_yuv.{hpp,cpp}``). The container is a host-side dataclass
 over NumPy byte arrays. The registry is this module's own: nothing here
 touches ``myyuv_tpu``'s tables, and importing the module registers no
-codec. ``FORMATS`` is static data; ``BMP_TO_YUV``, ``COMPRESSORS`` and
-``DECOMPRESSORS`` start empty and are filled by
-``engine.pipeline.register_engine_codecs`` (the CLI calls it).
+codec. ``FORMATS`` holds IYUV (``register_format`` adds a format);
+``BMP_TO_YUV``, ``COMPRESSORS`` and ``DECOMPRESSORS`` start empty and are
+filled by ``engine.pipeline.register_engine_codecs`` (the CLI calls it).
+``is_implemented`` answers from these tables as the JAX package's does.
 
 File format contract (myyuv_yuv.hpp:13-29):
   64-byte packed header: "YU" magic, u32 fourcc, u32 data_size (payload bytes),
@@ -85,10 +86,30 @@ COMPRESSORS: Dict[Tuple[int, int], Callable] = {}
 DECOMPRESSORS: Dict[Tuple[int, int], Callable] = {}
 
 
+def register_format(desc: FormatDescriptor,
+                    bmp_to_yuv: Optional[Callable] = None) -> None:
+    """Add a format's geometry and, if given, its BMP converter."""
+    FORMATS[desc.fourcc] = desc
+    if bmp_to_yuv is not None:
+        BMP_TO_YUV[desc.fourcc] = bmp_to_yuv
+
+
 def register_codec(compression: int, fcc: int,
                    compressor: Callable, decompressor: Callable) -> None:
     COMPRESSORS[(compression, fcc)] = compressor
     DECOMPRESSORS[(compression, fcc)] = decompressor
+
+
+def is_implemented(fcc: int, compression: int = Compressions.NONE) -> bool:
+    """Mirrors YUV::isImplementedFormat (myyuv_yuv.cpp:264-276): the format
+    and its BMP converter are registered and, for a compression other than
+    NONE, its compressor and decompressor."""
+    if fcc not in FORMATS or fcc not in BMP_TO_YUV:
+        return False
+    if compression != Compressions.NONE:
+        return ((compression, fcc) in COMPRESSORS
+                and (compression, fcc) in DECOMPRESSORS)
+    return True
 
 
 @dataclasses.dataclass

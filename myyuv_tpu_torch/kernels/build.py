@@ -48,6 +48,10 @@ _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 SIGNATURES = {
     "dct_encode": ("myyuv_dct_encode",
                    [_P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P]),
+    # K1's measurement instances (tools/exp_encphase.py)
+    "dct_encode_phases": ("myyuv_dct_encode_phases",
+                          [_P, _P, _P, _I64, _I64, _P, _P, _P, _P, _P,
+                           _I64, _P]),
     "decode_idct": ("myyuv_decode_idct",
                     [_P, _I64, _P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P,
                      _P]),

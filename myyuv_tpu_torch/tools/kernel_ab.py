@@ -36,9 +36,9 @@ replaced by a product, to measure that part's share): the share of output
 values that differ is printed instead. ``--kernels`` times only the kernels
 named. ``--cold`` also times K3, K4, F1 and F2 on inputs in device memory
 (``tools/common.py::cold``: copies of inputs and outputs rotated past twice
-the L2), as their bound by bytes assumes. ``--sass`` prints, for K3, K4, F1
-and F2 of every build, the count of each SASS opcode in the kernel
-(``cuobjdump -sass`` beside nvcc).
+the L2), as their bound by bytes assumes. ``--sass`` prints, for every
+kernel timed and every build, the count of each SASS opcode in each kernel
+instance (``cuobjdump -sass`` beside nvcc).
 """
 
 from __future__ import annotations
@@ -112,7 +112,7 @@ def main(argv=None) -> int:
                     help="also time K3, K4, F1, F2 on inputs in device "
                     "memory")
     ap.add_argument("--sass", action="store_true",
-                    help="print the SASS opcode counts of K3, K4, F1, F2")
+                    help="print the SASS opcode counts of every kernel")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -137,7 +137,7 @@ def main(argv=None) -> int:
         fns[label] = {k: build.open_library(k, csrc) for k in names}
         for name in names:
             print(f"[ptxas] {label} {name}: {reports[label][name]}")
-            if args.sass and name in TRANSFORMS:
+            if args.sass:
                 sass[f"{label} {name}"] = sass_opcodes(
                     build.library_path(name, csrc))
                 for fn, ops in sass[f"{label} {name}"].items():

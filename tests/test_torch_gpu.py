@@ -7,7 +7,9 @@ present, and run with ``python -m pytest tests/test_torch_gpu.py`` on a
 machine with one (``-k convert`` for X1 and X2, ``-k streaming`` for the
 drivers, ``-k "scan or sweep"`` for the scan and the sweep, ``-k "tree or
 probe or lane"`` for T1-T7, ``-k "sharded or card"`` for the multi-device
-path, the second card and the cube, ``-k fast`` for F1 and F2).
+path, the second card and the cube, ``-k fast`` for F1 and F2,
+``-k encphase`` for K1's measurement instances and the production
+encoders' recorded SASS).
 
 Tolerance: exact equality (bytes, sizes, pixels, error codes, totals,
 flags), except the sweep's PSNR on the card against the CPU's, to 1e-3:
@@ -1123,3 +1125,95 @@ def test_plain_fast_transform_ignores_the_tf32_flag(rng, cuda):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
     assert torch.equal(outs[0], outs[1])
+
+
+@pytest.fixture(scope="module")
+def encphase_frames():
+    """exp_r3stage's 4032x3008 CLI and noise frames on the card, q50."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from myyuv_tpu_torch.tools import exp_r3stage
+    dev = torch.device("cuda")
+    dct, qt = pipeline.codec_params([50] * 3, dev)
+    return exp_r3stage.frames(dev), qt, dct
+
+
+@pytest.mark.parametrize("variant", encode.PHASE_VARIANTS)
+@pytest.mark.parametrize("frame", ["cli", "noise"])
+def test_encphase_instance_matches_plain_on_4k(encphase_frames, variant,
+                                               frame):
+    """K1's measurement instance against its plain version, and its output
+    what its stand-in makes of K1's, on the tool's 4K frames."""
+    from myyuv_tpu_torch.tools import exp_encphase
+    frames, qt, dct = encphase_frames
+    planes = frames[frame]
+    before = build.launches["dct_encode_phases"]
+    got = encode.dct_encode_phase(*planes, qt, dct, variant)
+    assert build.launches["dct_encode_phases"] == before + 1
+    want = encode.dct_encode_phase_plain(*planes, qt, dct, variant)
+    for g, p in zip(got, want):
+        assert g.is_cuda and torch.equal(g, p)
+    full = encode.dct_encode_blocks(*planes, qt, dct)
+    coeffs = transform.dct_quantize_blocks(*planes, qt, dct)
+    assert exp_encphase.stand_in_holds(variant, got, full, coeffs)
+
+
+@pytest.mark.parametrize("variant", encode.PHASE_VARIANTS)
+@pytest.mark.parametrize("shape", [(16, 16), (48, 80)])
+@pytest.mark.parametrize("q", [1, 50, 100])
+def test_encphase_instance_matches_plain_on_content_kinds(rng, cuda, variant,
+                                                          shape, q):
+    """Five content kinds; 16x16 has 6 blocks, less than a CTA's 32."""
+    h, w = shape
+    dct, qt = pipeline.codec_params([q] * 3, cuda)
+    for kind in probe.KINDS:
+        planes = [torch.from_numpy(probe.content_kind(rng, kind, s)).to(cuda)
+                  for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+        got = encode.dct_encode_phase(*planes, qt, dct, variant)
+        want = encode.dct_encode_phase_plain(*planes, qt, dct, variant)
+        for g, p in zip(got, want):
+            assert torch.equal(g, p), kind
+
+
+def test_encphase_tools_on_the_card(cuda):
+    from myyuv_tpu_torch.tools import exp_encphase, exp_encsplit
+    out = exp_encphase.run(cuda)
+    assert out["max_abs_err"] == 0
+    assert all(r["exact"] and r["stand_in"] for frame in ("cli", "noise")
+               for r in out[frame].values())
+    out = exp_encsplit.run(cuda)
+    assert out["exact"] and out["flat_one_symbol"]
+
+
+def test_encphase_production_encoders_keep_the_recorded_sass(cuda):
+    """K1's and K5's production builds against ``tests/encoder_sass.json``,
+    the parent tree's builds as ``tools/kernel_ab.py --sass`` read them
+    before K1's kernel moved into ``csrc/dct_encode.cuh`` and the encoder
+    became a template on the stage it leaves out: the same registers, a
+    0-byte stack and the count of every SASS opcode. A change meant to
+    alter either kernel re-records the file (same command)."""
+    import json
+    import re
+    import subprocess
+    from pathlib import Path
+
+    from myyuv_tpu_torch.tools import kernel_ab
+    want = json.loads((Path(__file__).parent / "encoder_sass.json")
+                      .read_text())
+    nvcc = subprocess.run([build.nvcc_path(), "--version"],
+                          capture_output=True, text=True, check=True)
+    assert nvcc.stdout.strip().splitlines()[-1] == want["nvcc"], (
+        "another nvcc than the recorded counts': re-record them")
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    for name in ("dct_encode", "huffman_encode"):
+        build.load(name)
+        lib = build.library_path(name)
+        (ops,) = kernel_ab.sass_opcodes(lib).values()
+        assert ops == want[name]["opcodes"], name
+        usage = subprocess.run([str(cuobjdump), "-res-usage", str(lib)],
+                               capture_output=True, text=True,
+                               check=True).stdout
+        (regs, stack), = re.findall(r"REG:(\d+) STACK:(\d+)", usage)
+        assert int(regs) == want[name]["registers"], name
+        assert int(stack) == want[name]["stack_bytes"], name
+

@@ -29,6 +29,8 @@ def test_import_pulls_in_no_jax():
              "import myyuv_tpu_torch.tools.rd_sweep\n"
              "import myyuv_tpu_torch.tools.check_bitexact\n"
              "import myyuv_tpu_torch.tools.exp_bcast\n"
+             "import myyuv_tpu_torch.tools.exp_encphase\n"
+             "import myyuv_tpu_torch.tools.exp_encsplit\n"
              "import myyuv_tpu_torch.tools.exp_fma\n"
              "import myyuv_tpu_torch.tools.exp_r3stage\n"
              "import myyuv_tpu_torch.tools.exp_r4lane\n"
