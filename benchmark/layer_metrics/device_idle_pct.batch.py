@@ -1,0 +1,8 @@
+"""Share of the traced window in which no kernel, memcpy or memset ran on
+the card, in %."""
+
+
+def read(t):
+    if t.window_s <= 0 or t.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
