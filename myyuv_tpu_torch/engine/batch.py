@@ -23,6 +23,7 @@ from ..kernels import constants, transform
 from ..kernels import device as kdev
 from ..parallel import distributed
 from ..parallel.mesh import Mesh
+from ..runtime import trace
 from .device_stream import as_one_frame
 from .pipeline import resolve_device
 
@@ -52,7 +53,8 @@ def symbol_histogram(coeffs: torch.Tensor) -> torch.Tensor:
     """
     idx = coeffs.reshape(-1).to(torch.int32) + 1024
     idx = torch.where((idx >= 0) & (idx < NUM_SYMBOLS), idx, NUM_SYMBOLS)
-    vals, counts = torch.unique(idx, return_counts=True)
+    with trace.span("wait.size"):
+        vals, counts = torch.unique(idx, return_counts=True)
     hist = torch.zeros(NUM_SYMBOLS + 1, dtype=torch.int64, device=idx.device)
     hist.index_put_((vals.long(),), counts)
     return hist[:NUM_SYMBOLS].to(torch.int32)

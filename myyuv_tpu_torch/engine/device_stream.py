@@ -63,24 +63,28 @@ from ..entropy.device import LANE
 from ..kernels import build, convert, transform
 from ..kernels import device as kdev
 from ..kernels.device import plane_block_counts
+from ..runtime import trace
 from ..runtime.errors import BitstreamError
 
 Stream = Tuple[np.ndarray, np.ndarray]  # (chunk sizes u8, content u8)
 
 
 def _raise_first_bad(err: torch.Tensor, what: str) -> None:
-    bad = torch.nonzero(err).flatten()
-    if bad.numel():
-        b = int(bad[0])
-        raise BitstreamError(f"{what} failed at block {b} "
-                             f"(code {int(err[b])})")
+    with trace.span("wait.err"):
+        bad = torch.nonzero(err).flatten()
+        if bad.numel():
+            b = int(bad[0])
+            raise BitstreamError(f"{what} failed at block {b} "
+                                 f"(code {int(err[b])})")
 
 
 def compact_chunks(lanes: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
     """[N, 256] lanes -> the chunks back to back in block order (a
     row-major mask select, on the lanes' device)."""
     col = torch.arange(lanes.shape[1], device=lanes.device)
-    return lanes[col[None, :] < sizes[:, None]]
+    mask = col[None, :] < sizes[:, None]
+    with trace.span("wait.size"):
+        return lanes[mask]
 
 
 def scatter_chunks(lanes: torch.Tensor, sizes: torch.Tensor
@@ -159,6 +163,14 @@ def compress_frame(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     the chunks of all blocks back to back, exactly as the file stores
     them. ``fused=False`` takes the staged route (K3 then K5);
     ``precision="fast"`` F1 then K5, whatever ``fused`` says."""
+    with trace.span("stream.compress_frame"):
+        return _compress(y, u, v, qtables, dct, fused, precision)
+
+
+def _compress(y, u, v, qtables, dct, fused: bool, precision: str):
+    """``compress_frame``'s body, also ``compress_batch``'s: a batch entry
+    records its frame entry's span around its own work too, and spans of
+    one name must not nest."""
     sizes, content, err = _encode(y, u, v, qtables, dct, fused, precision)
     _raise_first_bad(err, "Huffman encode")
     return sizes, content
@@ -167,19 +179,41 @@ def compress_frame(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
 def split_planes(sizes: np.ndarray, content: np.ndarray, h: int,
                  w: int) -> List[Stream]:
     """A frame's (sizes, content) -> [(sizes u8, content u8)] per plane."""
-    out, lo, pos = [], 0, 0
-    for n in plane_block_counts(h, w):
-        s = sizes[lo:lo + n]
-        t = int(s.sum(dtype=np.int64))
-        out.append((s.astype(np.uint8), content[pos:pos + t]))
-        lo, pos = lo + n, pos + t
-    return out
+    with trace.span("stream.split"):
+        out, lo, pos = [], 0, 0
+        for n in plane_block_counts(h, w):
+            s = sizes[lo:lo + n]
+            t = int(s.sum(dtype=np.int64))
+            out.append((s.astype(np.uint8), content[pos:pos + t]))
+            lo, pos = lo + n, pos + t
+        return out
+
+
+def _upload(t: torch.Tensor, dev) -> torch.Tensor:
+    """A host tensor on ``dev``: one pageable copy to a CUDA device, which
+    waits for the card (``wait.h2d``; its bytes in
+    ``pageable_bytes.h2d``)."""
+    with trace.span("wait.h2d"):
+        if torch.device(dev).type == "cuda":
+            trace.add("pageable_bytes.h2d", t.nbytes)
+        return t.to(dev)
 
 
 def to_device(planes: Sequence[np.ndarray], dev: torch.device):
-    """Host arrays -> contiguous tensors on ``dev``."""
-    return [torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+    """Host arrays -> contiguous tensors on ``dev``, one pageable upload
+    each (``wait.h2d``)."""
+    return [_upload(torch.from_numpy(np.ascontiguousarray(p)), dev)
             for p in planes]
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a host array: one pageable copy from a CUDA
+    device, which waits for the card (``wait.d2h``; its bytes in
+    ``pageable_bytes.d2h``)."""
+    with trace.span("wait.d2h"):
+        if t.is_cuda:
+            trace.add("pageable_bytes.d2h", t.nbytes)
+        return t.cpu().numpy()
 
 
 def compress_frame_to_streams(planes: Sequence[np.ndarray],
@@ -190,8 +224,7 @@ def compress_frame_to_streams(planes: Sequence[np.ndarray],
     on ``qtables.device`` (``compress_frame``'s routes)."""
     sizes, content = compress_frame(*to_device(planes, qtables.device),
                                     qtables, dct, fused, precision)
-    return split_planes(sizes.cpu().numpy(), content.cpu().numpy(),
-                        *planes[0].shape)
+    return split_planes(to_host(sizes), to_host(content), *planes[0].shape)
 
 
 def decompress_frame(content: torch.Tensor, sizes: torch.Tensor,
@@ -202,6 +235,14 @@ def decompress_frame(content: torch.Tensor, sizes: torch.Tensor,
     planes on it. Raises BitstreamError naming the first bad block.
     ``fused=False`` takes the staged route (K6 then K4);
     ``precision="fast"`` K6 then F2, whatever ``fused`` says."""
+    with trace.span("stream.decompress_frame"):
+        return _decompress(content, sizes, qtables, dct, h, w, fused,
+                           precision)
+
+
+def _decompress(content, sizes, qtables, dct, h, w, fused: bool,
+                precision: str):
+    """``decompress_frame``'s body, also ``decompress_batch``'s."""
     y, u, v, err = _decode(content, sizes, qtables, dct, h, w, fused,
                            precision)
     _raise_first_bad(err, "Huffman decode")
@@ -221,9 +262,9 @@ def streams_to_device(streams: Sequence[Stream], dev: torch.device
             raise BitstreamError(
                 "content buffer shorter than chunk sizes imply")
         contents.append(c[:need])
-    sizes = torch.from_numpy(np.concatenate([s for s, _ in streams]))
-    sizes = sizes.to(dev).to(torch.int32)
-    content = torch.from_numpy(np.concatenate(contents)).to(dev)
+    sizes = _upload(torch.from_numpy(np.concatenate([s for s, _ in streams])),
+                   dev).to(torch.int32)
+    content = _upload(torch.from_numpy(np.concatenate(contents)), dev)
     return content, sizes
 
 
@@ -239,7 +280,7 @@ def decompress_streams_to_frame(streams: Sequence[Stream],
     content, sizes = streams_to_device(streams, qtables.device)
     y, u, v = decompress_frame(content, sizes, qtables, dct, h, w, fused,
                                precision)
-    return y.cpu().numpy(), u.cpu().numpy(), v.cpu().numpy()
+    return to_host(y), to_host(u), to_host(v)
 
 
 # ---------------------------------------------------------------------------
@@ -275,8 +316,9 @@ def compress_batch(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     [B*Nf], content u8 [T]) on it, blocks plane-major. Raises
     BitstreamError naming the first bad block. ``precision="fast"``: F1
     then K5."""
-    return compress_frame(*as_one_frame(y, u, v), qtables, dct,
-                          precision=precision)
+    with trace.span("stream.compress_frame"):
+        return _compress(*as_one_frame(y, u, v), qtables, dct, True,
+                         precision)
 
 
 def decompress_batch(content: torch.Tensor, sizes: torch.Tensor,
@@ -286,10 +328,11 @@ def decompress_batch(content: torch.Tensor, sizes: torch.Tensor,
     """A batch's plane-major (content, sizes) -> ([B, H, W], 2x
     [B, H/2, W/2]) uint8 planes on the device. Raises BitstreamError
     naming the first bad block. ``precision="fast"``: K6 then F2."""
-    y, u, v = decompress_frame(content, sizes, qtables, dct, b * h, w,
-                               precision=precision)
-    return (y.view(b, h, w), u.view(b, h // 2, w // 2),
-            v.view(b, h // 2, w // 2))
+    with trace.span("stream.decompress_frame"):
+        y, u, v = _decompress(content, sizes, qtables, dct, b * h, w, True,
+                              precision)
+        return (y.view(b, h, w), u.view(b, h // 2, w // 2),
+                v.view(b, h // 2, w // 2))
 
 
 def roundtrip_frame(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
@@ -300,6 +343,12 @@ def roundtrip_frame(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     K2 decodes K1's lanes in place (offsets 256 * b), so nothing waits for
     the card: no compaction, no host sync. ``precision="fast"``: F1 and K5,
     then K6 on K5's lanes in place and F2."""
+    with trace.span("stream.roundtrip_frame"):
+        return _roundtrip(y, u, v, qtables, dct, precision)
+
+
+def _roundtrip(y, u, v, qtables, dct, precision: str):
+    """``roundtrip_frame``'s body, also ``roundtrip_batch``'s."""
     h, w = y.shape
     lanes, sizes, cerr = frame_lanes(y, u, v, qtables, dct,
                                      precision=precision)
@@ -524,29 +573,31 @@ def roundtrip_batch(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     total compressed bytes, ok), all on the device (``roundtrip_frame``'s
     routes)."""
     b, h, w = y.shape
-    ry, ru, rv, total, ok = roundtrip_frame(*as_one_frame(y, u, v), qtables,
-                                            dct, precision)
-    return ((ry.view(b, h, w), ru.view(b, h // 2, w // 2),
-             rv.view(b, h // 2, w // 2)), total, ok)
+    with trace.span("stream.roundtrip_frame"):
+        ry, ru, rv, total, ok = _roundtrip(*as_one_frame(y, u, v), qtables,
+                                           dct, precision)
+        return ((ry.view(b, h, w), ru.view(b, h // 2, w // 2),
+                 rv.view(b, h // 2, w // 2)), total, ok)
 
 
 def batch_streams_split(sizes_np: np.ndarray, packed: np.ndarray, b: int,
                         ny: int, nc: int) -> List[List[Stream]]:
     """Split a batch's plane-major (sizes, content) into per-frame
     [(sizes u8, content u8) x3]."""
-    boffs = np.cumsum(sizes_np.astype(np.int64)) - sizes_np
-    frames = [[] for _ in range(b)]
-    pbase = 0
-    for npl in (ny, nc, nc):
-        for f in range(b):
-            lo = pbase + f * npl
-            s = sizes_np[lo:lo + npl]
-            base = int(boffs[lo])
-            frames[f].append(
-                (s.astype(np.uint8),
-                 packed[base:base + int(s.astype(np.int64).sum())]))
-        pbase += b * npl
-    return frames
+    with trace.span("stream.split"):
+        boffs = np.cumsum(sizes_np.astype(np.int64)) - sizes_np
+        frames = [[] for _ in range(b)]
+        pbase = 0
+        for npl in (ny, nc, nc):
+            for f in range(b):
+                lo = pbase + f * npl
+                s = sizes_np[lo:lo + npl]
+                base = int(boffs[lo])
+                frames[f].append(
+                    (s.astype(np.uint8),
+                     packed[base:base + int(s.astype(np.int64).sum())]))
+            pbase += b * npl
+        return frames
 
 
 def compress_batch_to_streams(planes: Sequence[np.ndarray],
@@ -560,5 +611,4 @@ def compress_batch_to_streams(planes: Sequence[np.ndarray],
     sizes, content = compress_batch(*to_device(planes, qtables.device),
                                     qtables, dct, precision)
     ny, nc, _ = plane_block_counts(h, w)
-    return batch_streams_split(sizes.cpu().numpy(), content.cpu().numpy(),
-                               b, ny, nc)
+    return batch_streams_split(to_host(sizes), to_host(content), b, ny, nc)

@@ -23,6 +23,7 @@ import torch
 from ..formats import dct_stream, yuv
 from ..formats.bmp import BMPImage
 from ..kernels import constants, convert
+from ..runtime import trace
 from ..runtime.errors import GeometryError, MyYUVError
 from . import device_stream
 
@@ -61,10 +62,10 @@ def codec_params(qualities: Sequence[int], device
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The codec's weights on ``device``: (DCT matrix f32 [8, 8],
     quality-scaled tables f32 [3, 8, 8] for Y, U, V)."""
-    qt = np.stack([constants.quality_scaled_qtable(constants.PLANE_Q50[i],
-                                                   int(qualities[i]))
-                   for i in range(3)])
-    return codec_params_from_jax(constants.DCT_MATRIX8, list(qt), device)
+    with trace.span("pipeline.codec_params"):
+        qt = np.stack([constants.quality_scaled_qtable(
+            constants.PLANE_Q50[i], int(qualities[i])) for i in range(3)])
+        return codec_params_from_jax(constants.DCT_MATRIX8, list(qt), device)
 
 
 def codec_params_from_jax(dct_matrix_np: np.ndarray,
@@ -74,11 +75,10 @@ def codec_params_from_jax(dct_matrix_np: np.ndarray,
     three [8, 8] tables its ``pipeline._qtables`` returns (as numpy) ->
     the port's (dct [8, 8], qtables [3, 8, 8]) float32 tensors on
     ``device``."""
-    dct = torch.from_numpy(np.asarray(dct_matrix_np, np.float32).copy())
-    qt = torch.from_numpy(np.stack(
-        [np.asarray(q, np.float32).reshape(8, 8) for q in qtables_np]))
-    dev = resolve_device(device)
-    return dct.to(dev), qt.to(dev)
+    dct = np.asarray(dct_matrix_np, np.float32).copy()
+    qt = np.stack([np.asarray(q, np.float32).reshape(8, 8)
+                   for q in qtables_np])
+    return tuple(device_stream.to_device([dct, qt], resolve_device(device)))
 
 
 def compress_dct(img: yuv.YUVImage, params: bytes, device="cuda",
@@ -87,17 +87,18 @@ def compress_dct(img: yuv.YUVImage, params: bytes, device="cuda",
     ``precision="fast"`` runs F1 then K5 (coefficients within +-1 of
     exact; the file is an ordinary DCT file); any value but "exact" and
     "fast" raises ValueError."""
-    if img.descriptor.group != yuv.FormatGroup.PLANAR:
-        raise MyYUVError("Error compressing: YUV must be planar")
-    if img.is_compressed():
-        raise MyYUVError("Error already compressed")
-    qualities = _check_quality(params)
-    _check_geometry(img)
-    dct, qtables = codec_params(qualities, device)
-    return streams_to_compressed(
-        img, params,
-        device_stream.compress_frame_to_streams(img.planes(), qtables, dct,
-                                                precision=precision))
+    with trace.span("pipeline.compress_dct"):
+        if img.descriptor.group != yuv.FormatGroup.PLANAR:
+            raise MyYUVError("Error compressing: YUV must be planar")
+        if img.is_compressed():
+            raise MyYUVError("Error already compressed")
+        qualities = _check_quality(params)
+        _check_geometry(img)
+        dct, qtables = codec_params(qualities, device)
+        return streams_to_compressed(
+            img, params,
+            device_stream.compress_frame_to_streams(
+                img.planes(), qtables, dct, precision=precision))
 
 
 def streams_to_compressed(img: yuv.YUVImage, params: bytes,
@@ -149,11 +150,13 @@ def decompress_dct(img: yuv.YUVImage, device="cuda",
     A malformed chunk raises BitstreamError. ``precision="fast"`` runs K6
     then F2 (pixels within +-1 of exact); any value but "exact" and "fast"
     raises ValueError."""
-    streams, dct, qtables = _dct_streams(img, device)
-    planes = device_stream.decompress_streams_to_frame(
-        streams, qtables, dct, img.height, img.width, precision=precision)
-    return yuv.YUVImage.from_planes(img.header.fourcc_format, planes,
-                                    img.width, img.height)
+    with trace.span("pipeline.decompress_dct"):
+        streams, dct, qtables = _dct_streams(img, device)
+        planes = device_stream.decompress_streams_to_frame(
+            streams, qtables, dct, img.height, img.width,
+            precision=precision)
+        return yuv.YUVImage.from_planes(img.header.fourcc_format, planes,
+                                        img.width, img.height)
 
 
 def bmp_to_iyuv(bmp: BMPImage, device="cuda") -> yuv.YUVImage:
@@ -169,7 +172,7 @@ def bmp_to_iyuv(bmp: BMPImage, device="cuda") -> yuv.YUVImage:
     pixels = torch.from_numpy(np.ascontiguousarray(bmp.pixels_topdown()))
     planes = convert.bgrx_to_iyuv(pixels.to(resolve_device(device)))
     return yuv.YUVImage.from_planes(
-        yuv.FourccFormats.IYUV, [p.cpu().numpy() for p in planes],
+        yuv.FourccFormats.IYUV, [device_stream.to_host(p) for p in planes],
         bmp.true_width, bmp.true_height)
 
 
@@ -186,7 +189,7 @@ def iyuv_to_bgrx(img: yuv.YUVImage, device="cuda") -> np.ndarray:
                                                 img.height, img.width)
     else:
         planes = device_stream.to_device(img.planes(), dev)
-    return convert.iyuv_to_bgrx(*planes).cpu().numpy()
+    return device_stream.to_host(convert.iyuv_to_bgrx(*planes))
 
 
 def register_engine_codecs(device="cuda") -> None:

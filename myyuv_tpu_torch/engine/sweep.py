@@ -28,10 +28,18 @@ import torch
 
 from ..entropy import encode
 from ..kernels import probe
+from ..runtime import trace
 from ..runtime.errors import BitstreamError
 from . import batch
 from . import device_stream as ds
 from .pipeline import codec_params, resolve_device
+
+
+def _read(t: torch.Tensor, cast):
+    """``cast`` (int, float or bool) of a device scalar, which waits for
+    the card (``wait.scalar``)."""
+    with trace.span("wait.scalar"):
+        return cast(t)
 
 
 def _coder_bytes(y, u, v, qtables, dct, precision: str = "exact") -> int:
@@ -40,10 +48,10 @@ def _coder_bytes(y, u, v, qtables, dct, precision: str = "exact") -> int:
     comp = 12
     for c in batch.encode_planes(y, u, v, *qtables, dct, precision):
         _lanes, sizes, err = encode.encode_blocks(c.reshape(-1, 64))
-        if bool(err.any()):
+        if _read(err.any(), bool):
             raise BitstreamError("Huffman encode failed: a chunk does not "
                                  "fit its 8-bit size")
-        comp += int(sizes.sum(dtype=torch.int64)) + sizes.numel() + 8
+        comp += _read(sizes.sum(dtype=torch.int64), int) + sizes.numel() + 8
     return comp
 
 
@@ -71,7 +79,7 @@ def _device_rate(y, u, v, qtables, dct, time_device: bool,
 
 
 def _psnr(sse: torch.Tensor, n: int) -> float:
-    mse = float(sse) / n
+    mse = _read(sse, float) / n
     return float(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
 
 
@@ -109,22 +117,24 @@ def quality_sweep(planes: Sequence[np.ndarray],
     npix = sum(p.size for p in planes)
     out = []
     for q in qualities:
-        dct, qtables = codec_params([q] * 3, dev)
-        _, m = batch.roundtrip_step(y, u, v, *qtables, dct, precision)
-        if entropy_backend == "device":
-            comp, fps = _device_rate(y, u, v, qtables, dct, time_device,
-                                     precision)
-        else:
-            comp, fps = _coder_bytes(y, u, v, qtables, dct, precision), {}
-        out.append({
-            "quality": int(q),
-            "psnr_y_db": round(_psnr(m["sse_y"], planes[0].size), 3),
-            "psnr_u_db": round(_psnr(m["sse_u"], planes[1].size), 3),
-            "psnr_v_db": round(_psnr(m["sse_v"], planes[2].size), 3),
-            "compressed_bytes": comp,
-            "bits_per_pixel": round(8 * comp / npix, 4),
-            "entropy_bits_per_symbol": round(
-                float(m["entropy_bits_per_symbol"]), 4),
-            **fps,
-        })
+        with trace.span("sweep.quality"):
+            dct, qtables = codec_params([q] * 3, dev)
+            _, m = batch.roundtrip_step(y, u, v, *qtables, dct, precision)
+            if entropy_backend == "device":
+                comp, fps = _device_rate(y, u, v, qtables, dct, time_device,
+                                         precision)
+            else:
+                comp = _coder_bytes(y, u, v, qtables, dct, precision)
+                fps = {}
+            out.append({
+                "quality": int(q),
+                "psnr_y_db": round(_psnr(m["sse_y"], planes[0].size), 3),
+                "psnr_u_db": round(_psnr(m["sse_u"], planes[1].size), 3),
+                "psnr_v_db": round(_psnr(m["sse_v"], planes[2].size), 3),
+                "compressed_bytes": comp,
+                "bits_per_pixel": round(8 * comp / npix, 4),
+                "entropy_bits_per_symbol": round(
+                    _read(m["entropy_bits_per_symbol"], float), 4),
+                **fps,
+            })
     return out

@@ -23,6 +23,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..runtime import trace
 from ..runtime.errors import BitstreamError
 
 
@@ -77,28 +78,31 @@ class DCTStream:
     @classmethod
     def parse(cls, data: np.ndarray) -> "DCTStream":
         """Parse a full payload (DCTYUV::load, DCT.cpp:130-159)."""
-        if data.size <= 12:
-            raise BitstreamError("DCTYUV load bad size")
-        sizes = data[:12].view(np.uint32).astype(np.int64)
-        if data.size < 12 + int(sizes.sum()):
-            raise BitstreamError("DCTYUV load bad size")
-        planes: List[Optional[DCTPlaneStream]] = []
-        pos = 12
-        for i in range(3):
-            if sizes[i] != 0:
-                planes.append(DCTPlaneStream.parse(data[pos: pos + sizes[i]]))
-                pos += int(sizes[i])
-            else:
-                planes.append(None)
-        return cls(planes)
+        with trace.span("dct_stream.parse"):
+            if data.size <= 12:
+                raise BitstreamError("DCTYUV load bad size")
+            sizes = data[:12].view(np.uint32).astype(np.int64)
+            if data.size < 12 + int(sizes.sum()):
+                raise BitstreamError("DCTYUV load bad size")
+            planes: List[Optional[DCTPlaneStream]] = []
+            pos = 12
+            for i in range(3):
+                if sizes[i] != 0:
+                    planes.append(
+                        DCTPlaneStream.parse(data[pos: pos + sizes[i]]))
+                    pos += int(sizes[i])
+                else:
+                    planes.append(None)
+            return cls(planes)
 
     def serialize(self) -> np.ndarray:
-        chunks = [None, None, None]
-        sizes = np.zeros(3, np.uint32)
-        for i, p in enumerate(self.planes):
-            if p is not None:
-                chunks[i] = p.serialize()
-                sizes[i] = chunks[i].size
-        out = [np.frombuffer(sizes.tobytes(), np.uint8)]
-        out += [c for c in chunks if c is not None]
-        return np.concatenate(out)
+        with trace.span("dct_stream.serialize"):
+            chunks = [None, None, None]
+            sizes = np.zeros(3, np.uint32)
+            for i, p in enumerate(self.planes):
+                if p is not None:
+                    chunks[i] = p.serialize()
+                    sizes[i] = chunks[i].size
+            out = [np.frombuffer(sizes.tobytes(), np.uint8)]
+            out += [c for c in chunks if c is not None]
+            return np.concatenate(out)

@@ -9,7 +9,8 @@ drivers, ``-k "scan or sweep"`` for the scan and the sweep, ``-k "tree or
 probe or lane"`` for T1-T7, ``-k "sharded or card"`` for the multi-device
 path, the second card and the cube, ``-k fast`` for F1 and F2,
 ``-k encphase`` for K1's measurement instances and the production
-encoders' recorded SASS).
+encoders' recorded SASS, ``-k trace`` for the span recorder's waits and
+pageable bytes).
 
 Tolerance: exact equality (bytes, sizes, pixels, error codes, totals,
 flags), except the sweep's PSNR on the card against the CPU's, to 1e-3:
@@ -1217,3 +1218,58 @@ def test_encphase_production_encoders_keep_the_recorded_sass(cuda):
         assert int(regs) == want[name]["registers"], name
         assert int(stack) == want[name]["stack_bytes"], name
 
+
+
+def test_trace_pins_the_file_paths_waits_and_pageable_bytes(rng, cuda):
+    """One compress and one decompress of a 992x736 still with the
+    recorder on: the CPU route's ``wait.*`` spans, and the exact bytes of
+    every pageable copy (the tables, the three planes, the chunk sizes as
+    int32 down and uint8 up, the content each way); the same launches and
+    the same file as with the recorder off."""
+    from myyuv_tpu_torch.formats import dct_stream, yuv
+    from myyuv_tpu_torch.runtime import trace
+    h, w = 736, 992
+    base = np.add.outer(np.arange(h) * 3, np.arange(w) * 2) % 200
+    planes = [(base + rng.integers(0, 40, (h, w))).astype(np.uint8),
+              rng.integers(90, 170, (h // 2, w // 2)).astype(np.uint8),
+              base[::2, ::2].astype(np.uint8)]
+    raw = yuv.YUVImage.from_planes(yuv.FourccFormats.IYUV, planes, w,
+                                   h).to_bytes()
+    npix, nblk = h * w * 3 // 2, h * w * 3 // 2 // 64
+    tables = (8 * 8 + 3 * 8 * 8) * 4
+
+    def both(on: bool):
+        before = dict(build.launches)
+        if on:
+            trace.start()
+        packed = pipeline.compress_dct(yuv.YUVImage.from_bytes(raw),
+                                       bytes([50] * 3), cuda).to_bytes()
+        comp = trace.stop()
+        if on:
+            trace.start()
+        back = pipeline.decompress_dct(yuv.YUVImage.from_bytes(packed),
+                                       cuda).to_bytes()
+        decomp = trace.stop()
+        launched = {k: n - before.get(k, 0)
+                    for k, n in build.launches.items()}
+        return packed, back, launched, comp, decomp
+
+    off = both(False)[:3]
+    packed, back, launched, (cs, cc), (ds, dc) = both(True)
+    assert (packed, back, launched) == off
+    content = sum(p.content.size for p in dct_stream.DCTStream.parse(
+        yuv.YUVImage.from_bytes(packed).data).planes)
+
+    def waits(spans):
+        out = {}
+        for n, _, _, _ in spans:
+            if n.startswith("wait."):
+                out[n] = out.get(n, 0) + 1
+        return out
+    assert waits(cs) == {"wait.h2d": 5, "wait.size": 1, "wait.err": 1,
+                         "wait.d2h": 2}
+    assert waits(ds) == {"wait.h2d": 4, "wait.err": 1, "wait.d2h": 3}
+    assert cc == {"pageable_bytes.h2d": tables + npix,
+                  "pageable_bytes.d2h": nblk * 4 + content}
+    assert dc == {"pageable_bytes.h2d": tables + nblk + content,
+                  "pageable_bytes.d2h": npix}
