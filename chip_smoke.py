@@ -5,18 +5,19 @@ Run from the repository root on a machine with a CUDA card::
 
     python3 chip_smoke.py
 
-It builds the eighteen CUDA kernels from ``myyuv_tpu_torch/csrc`` (nvcc, one
+It builds the nineteen CUDA kernels from ``myyuv_tpu_torch/csrc`` (nvcc, one
 process per source, all at once), then, each phase printing one line and any
 failure ending the run with a non-zero exit code:
 
 1. environment: Python, torch, CUDA and nvcc versions, the card;
-2. build of the eighteen kernels, timed, with ptxas's registers, stack
-   frame and spills per kernel instance; all eighteen (the lane-group
+2. build of the nineteen kernels, timed, with ptxas's registers, stack
+   frame and spills per kernel instance; all nineteen (the lane-group
    encoders K1 and K5, the warp decoders K2 and K6, the group transforms K3
    and K4, the fast transforms F1 and F2, the colour conversions X1 and
-   X2, T1-T7, the probes of the tools and the decoder's tree stage, and
-   K1's five measurement instances, ``dct_encode_phases.cu``) must use no
-   local memory (0-byte stack frame, no spills);
+   X2, T1-T7, the probes of the tools and the decoder's tree stage,
+   K1's five measurement instances, ``dct_encode_phases.cu``, and the
+   compaction C1, ``compact_chunks.cu``) must use no local memory (0-byte
+   stack frame, no spills);
 3. on ten 4032x3008 frames (five content kinds: noise, gradient, flat,
    impulse, banded; q50 and q90; the contraction-probe blocks in every
    frame): K1 (csrc/dct_encode.cu), K3 (dct_quantize.cu) and K5
@@ -24,15 +25,17 @@ failure ending the run with a non-zero exit code:
    against K1(x): coefficients, chunk bytes, sizes and flags identical;
    K5 on int16 coefficients no DCT produces and on the encoder families
    (``probe.encoder_families``) against its plain version;
-4. on those frames' streams: K2 (decode_idct.cu), K6 (huffman_decode.cu)
-   and K4 (dequantize_idct.cu) against their plain versions, K4(K6(s))
-   against K2(s); on a stream with corrupt chunks and on the decoder
-   families (``probe.decoder_families``: every reachable error code, valid
-   edge cases, offsets outside the content), K6 and K2 against their plain
-   versions and K6's error codes against K2's; X2 (iyuv_to_bgrx.cu) on the
-   ten decoded frames and X1 (bgrx_to_iyuv.cu) on X2's pixels, X1 on a
-   4096x4096 frame holding every 24-bit colour once and X2 on planes
-   holding every (Y, U, V) triple once, against their plain versions;
+4. on those frames' lanes: C1 (compact_chunks.cu) against its plain
+   version, the mask select; on their streams: K2 (decode_idct.cu), K6
+   (huffman_decode.cu) and K4 (dequantize_idct.cu) against their plain
+   versions, K4(K6(s)) against K2(s); on a stream with corrupt chunks and
+   on the decoder families (``probe.decoder_families``: every reachable
+   error code, valid edge cases, offsets outside the content), K6 and K2
+   against their plain versions and K6's error codes against K2's; X2
+   (iyuv_to_bgrx.cu) on the ten decoded frames and X1 (bgrx_to_iyuv.cu)
+   on X2's pixels, X1 on a 4096x4096 frame holding every 24-bit colour
+   once and X2 on planes holding every (Y, U, V) triple once, against
+   their plain versions;
 5. the main path through the CLI (``-to_yuv IYUV``, ``-compress DCT 50``,
    ``-decompress``) on a synthetic 4032x3008 XRGB8888 BMP, the launch counts
    set to 0 just before and read just after; the file's payload must equal
@@ -67,13 +70,17 @@ failure ending the run with a non-zero exit code:
    ``compress_dct``/``decompress_dct`` on the host clock; the 8 x 1080p
    ``roundtrip_batch`` (K2 decoding K1's lanes in place) beside the same
    round trip compacting first (the route before it), and
-   ``roundtrip_step``;
+   ``roundtrip_step``; C1 alone (``probe.cuda_ms``) on the CLI frame's, the
+   noise frame's and the 8 x 1080p batch's lanes against its bound, and
+   beside ``compact_chunks`` with its read of the length and the mask
+   select (the plain version, and ``library_ms``) on the host clock;
 10. capture, playback and streaming on the CLI frame, 32 frames, 4K q50:
-    ``ingest_frame`` (X1 + K1) and ``preview_frame`` (K2 + X2) against the
+    ``ingest_frame`` (X1 + K1 + C1) and ``preview_frame`` (K2 + X2) against the
     frame API and the plain versions, one launch of each kernel; the
     drivers of ``engine/streaming.py`` (``roundtrip_stream``,
     ``ingest_stream``, ``preview_stream``, ``compress_stream``) with flags,
-    totals and bytes equal to the frame API's and 32 launches a kernel; the
+    totals and bytes equal to the frame API's and 32 launches a kernel (C1
+    64: ingest and ``compress_stream`` compact with ``scatter_chunks``); the
     round trip and ingest drivers queue 16 frames behind a sleep kernel
     without the card running dry (no host sync); sustained round trip,
     ingest, preview and ``compress_stream`` fps on the host clock;
@@ -212,7 +219,7 @@ REPS = 7
 DCT_FLOP = 2 * 64 * 15 + 64     # per block: two 8-term chains + (de)quantize
 KERNELS = ("dct_encode", "decode_idct", "dct_quantize", "dequantize_idct",
            "huffman_encode", "huffman_decode", "bgrx_to_iyuv",
-           "iyuv_to_bgrx")
+           "iyuv_to_bgrx", "compact_chunks")
 # T1-T7, in the order of the table of TPU kernels (PERF.md)
 PROBES = ("lane_shuffle", "bcast_mul", "lane_probes", "fma_probe",
           "huffman_tree", "consume_chain", "dct_chain")
@@ -247,6 +254,9 @@ REPLACES = {
     "huffman_decode": "myyuv_tpu/entropy/pallas_decode8.py:183+319",
     "bgrx_to_iyuv": "myyuv_tpu/kernels/device.py:232",
     "iyuv_to_bgrx": "myyuv_tpu/kernels/device.py:285",
+    # no Pallas kernel: the XLA compaction of _compact_split and
+    # _compact_stream_words
+    "compact_chunks": "myyuv_tpu/engine/device_stream.py:360+667",
     "lane_shuffle": "tools/exp_shuffle.py:91",
     "bcast_mul": "tools/exp_bcast.py:31",
     "lane_probes": "tools/exp_r4lane.py:100",
@@ -282,6 +292,23 @@ def host_ms(fn, reps: int = REPS) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def c1_alone(device_stream, lanes: torch.Tensor, sizes: torch.Tensor):
+    """A call of C1's launch alone on ``lanes`` and ``sizes``, its inputs
+    (the clamped sizes and their cumulative sum) and its output made once,
+    for ``probe.cuda_ms``: ``compact_chunks`` reads the stream's length
+    on the host first, which a queued timer cannot time."""
+    live = sizes.clamp(0, 256).to(torch.int32)
+    ends = torch.cumsum(live, 0, dtype=torch.int64)
+    out = torch.empty(int(ends[-1]), dtype=torch.uint8, device=lanes.device)
+    return lambda: device_stream._launch_compact(lanes, live, ends, out)
+
+
+def c1_bytes(sizes: torch.Tensor) -> int:
+    """The bytes C1 must move: each block's count (4 B) and end (8 B), its
+    live bytes read once and written once."""
+    return sizes.numel() * 12 + 2 * int(sizes.clamp(0, 256).sum())
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -408,6 +435,8 @@ def main() -> int:
     for kind, q, planes, qt, dct, lanes, sizes, coeffs in streams:
         tag = f"{kind} q{q}"
         stream = device_stream.compact_chunks(lanes, sizes)
+        same([stream], [device_stream.compact_chunks_plain(lanes, sizes)],
+             errs, "compact_chunks", f"C1 differs from plain: {tag}")
         offsets = torch.cumsum(sizes, 0, dtype=torch.int64) - sizes
         got = decode.decode_idct_blocks(stream, sizes, offsets, qt, dct,
                                         H4K, W4K)
@@ -482,9 +511,11 @@ def main() -> int:
         fam_codes |= set(k6[1].tolist())
     check(fam_codes == {0, 1, 2, 3, 4, 5, 7, 8},
           f"decoder families reached codes {sorted(fam_codes)}")
-    print(f"[4 K2/K6/K4 vs plain] 10 streams: pixels, coefficients and err "
-          f"identical; K4(K6(s)) == K2(s); corrupt chunks flagged alike by "
-          f"K2, K6 and plain at blocks {flagged[:8]} (codes "
+    print(f"[4 C1/K2/K6/K4 vs plain] C1 == the mask select on the 10 frames' "
+          f"lanes (max_abs_err {errs['compact_chunks']}); 10 streams: "
+          f"pixels, coefficients and err identical; K4(K6(s)) == K2(s); "
+          f"corrupt chunks flagged alike by K2, K6 and plain at blocks "
+          f"{flagged[:8]} (codes "
           f"{[int(got[3][b]) for b in flagged[:8]]}); K2 and K6 == plain "
           f"on the {len(dfam)} decoder families, with gaps and back to back "
           f"({sum(a[1].size for a in dfam.values())} chunks, codes "
@@ -675,7 +706,8 @@ def main() -> int:
     path_of = {"dct_encode": "main", "decode_idct": "main",
                "dct_quantize": "staged", "dequantize_idct": "staged",
                "huffman_encode": "staged", "huffman_decode": "staged",
-               "bgrx_to_iyuv": "main", "iyuv_to_bgrx": "rgb"}
+               "bgrx_to_iyuv": "main", "iyuv_to_bgrx": "rgb",
+               "compact_chunks": "main"}
     for name, path in path_of.items():
         check(launches[path][name] > 0,
               f"{name} never launched on the {path} path: {launches[path]}")
@@ -706,6 +738,7 @@ def main() -> int:
     px_dev = torch.from_numpy(px).to(dev)
     npix = H4K * W4K
     convert_bytes = npix * 4 + npix * 3 // 2  # BGRX one way, planes the other
+    lanes4k, sizes4k, _ = encode.dct_encode_blocks(*planes, qt, dct)
 
     # kernel, plain version, the plain version's timer, bound
     runs = {
@@ -752,6 +785,10 @@ def main() -> int:
             lambda: kdev.iyuv_to_bgrx(*planes),
             probe.host_inclusive_ms, bound_ms(convert_bytes,
                              npix * CONVERT_FLOP["iyuv_to_bgrx"])),
+        "compact_chunks": (
+            c1_alone(device_stream, lanes4k, sizes4k),
+            lambda: device_stream.compact_chunks_plain(lanes4k, sizes4k),
+            probe.host_inclusive_ms, bound_ms(c1_bytes(sizes4k))),
     }
     one_call = {name: probe.host_inclusive_ms(runs[name][0], REPS)
                 for name in ("dct_quantize", "dequantize_idct")}
@@ -783,6 +820,8 @@ def main() -> int:
         "huffman_encode": lambda: encode.encode_blocks(ncoeffs),
         "huffman_decode": lambda: decode.decode_blocks(nstream, nsizes,
                                                        noffsets),
+        "compact_chunks": c1_alone(device_stream, *encode.dct_encode_blocks(
+            *nplanes, nqt, ndct)[:2]),
     }
     noise_ms = {name: probe.cuda_ms(fn, REPS)
                 for name, fn in noise_runs.items()}
@@ -817,11 +856,26 @@ def main() -> int:
         return ~(cerr.any() | derr.any())
 
     rt_compact_ms = host_ms(compacting_roundtrip)
-    lanes4k, sizes4k, _ = encode.dct_encode_blocks(*planes, qt, dct)
-    mask_ms = host_ms(lambda: device_stream.compact_chunks(lanes4k, sizes4k))
+    compact_ms = host_ms(lambda: device_stream.compact_chunks(lanes4k,
+                                                              sizes4k))
+    mask_ms = host_ms(lambda: device_stream.compact_chunks_plain(lanes4k,
+                                                                 sizes4k))
     scatter_ms = host_ms(lambda: device_stream.scatter_chunks(lanes4k,
                                                               sizes4k))
     del lanes4k
+    blanes, bsizes_c1, _ = encode.dct_encode_blocks(
+        *device_stream.as_one_frame(*bt), qt, dct)
+    c1_batch = {
+        "batch_ms": probe.cuda_ms(c1_alone(device_stream, blanes, bsizes_c1),
+                                  REPS),
+        "batch_bound_ms": bound_ms(c1_bytes(bsizes_c1))[0],
+        "batch_compact_ms": host_ms(lambda: device_stream.compact_chunks(
+            blanes, bsizes_c1)),
+        "batch_library_ms": host_ms(lambda: device_stream.compact_chunks_plain(
+            blanes, bsizes_c1)),
+        "batch_blocks": bsizes_c1.numel(),
+        "batch_stream_bytes": int(bsizes_c1.sum())}
+    del blanes
     step_ms = host_ms(lambda: batch.roundtrip_step(*bt, *qt, dct))
     print(f"[9 times] {card} | host clock, median of {REPS}: {W4K}x{H4K} "
           f"q50 compress_frame fused {fused_c:.3f} ms staged "
@@ -832,8 +886,15 @@ def main() -> int:
           f"{rt_ms:.3f} ms ({BATCH * 1e3 / rt_ms:.1f} frames/s; the same "
           f"round trip compacting first {rt_compact_ms:.3f} ms); "
           f"roundtrip_step {step_ms:.3f} ms; compaction of the {W4K}x{H4K} "
-          f"lanes: mask select {mask_ms:.3f} ms, scatter_chunks "
-          f"{scatter_ms:.3f} ms", flush=True)
+          f"lanes: compact_chunks (C1 and the length's read) "
+          f"{compact_ms:.3f} ms, the mask select {mask_ms:.3f} ms, "
+          f"scatter_chunks {scatter_ms:.3f} ms; of the {BATCH} x {W1K}x{H1K} "
+          f"lanes ({c1_batch['batch_blocks']} blocks, "
+          f"{c1_batch['batch_stream_bytes']} stream bytes): C1 alone "
+          f"{c1_batch['batch_ms']:.4f} ms (CUDA events, bound "
+          f"{c1_batch['batch_bound_ms']:.4f} by bytes), compact_chunks "
+          f"{c1_batch['batch_compact_ms']:.3f} ms, the mask select "
+          f"{c1_batch['batch_library_ms']:.3f} ms", flush=True)
 
     # 10: capture, playback and the streaming drivers on the CLI frame
     reset_launches()
@@ -852,7 +913,8 @@ def main() -> int:
     check(bool(pok) and torch.equal(pbgrx, kdev.iyuv_to_bgrx(ry, ru, rv)),
           "preview_frame differs from plain X2 of the plain decode")
     del isizes, icontent, pbgrx
-    for step, pair in (("ingest_frame", ("bgrx_to_iyuv", "dct_encode")),
+    for step, pair in (("ingest_frame", ("bgrx_to_iyuv", "dct_encode",
+                                         "compact_chunks")),
                        ("preview_frame", ("decode_idct", "iyuv_to_bgrx"))):
         want = dict.fromkeys(ALL, 0)
         want.update(dict.fromkeys(pair, 1))
@@ -876,7 +938,8 @@ def main() -> int:
           "streamed totals differ from the frame API")
     want = dict.fromkeys(ALL, 0)
     want.update(dct_encode=3 * NSTREAM, decode_idct=2 * NSTREAM,
-                bgrx_to_iyuv=NSTREAM, iyuv_to_bgrx=NSTREAM)
+                bgrx_to_iyuv=NSTREAM, iyuv_to_bgrx=NSTREAM,
+                compact_chunks=2 * NSTREAM)
     check(launches["streaming"] == want,
           f"streaming launched {launches['streaming']}")
     for name, drive, item in (
@@ -1204,7 +1267,8 @@ def main() -> int:
          "ms": times[name][0], "plain_ms": times[name][1],
          "noise_ms": noise_ms[name],
          "bound_ms": times[name][2][0], "bound_by": times[name][2][1],
-         "library_ms": None,
+         "library_ms": mask_ms if name == "compact_chunks" else None,
+         **(c1_batch if name == "compact_chunks" else {}),
          "launches_scan": launches["scan"][name],
          "scan_graph_launches": graph_launches.get(name, 0),
          "scan_replays": scan_replays,
@@ -1567,7 +1631,7 @@ def fast_path(dev, card: str, img, planes, noise_planes, stack,
               <= FAST_PSNR_DB, f"fast PSNR-Y at q{q}: {psnr[q]}")
     want = dict.fromkeys(ALL, 0)
     want.update(fast_dct_quantize=1, huffman_encode=1, huffman_decode=1,
-                fast_dequantize_idct=1)
+                fast_dequantize_idct=1, compact_chunks=1)
     check(launches["main"] == want,
           f"the fast main path launched {launches['main']}")
     print(f"[15c fast main path] compress_dct / decompress_dct "

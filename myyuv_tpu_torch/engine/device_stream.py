@@ -16,16 +16,20 @@ routes give the same bytes and pixels:
     decompress: offsets -> K6 (decode_blocks) -> coefficients -> K4
                 (dequantize_idct_blocks) -> planes
 
-The compaction is a row-major mask select of the 256-byte lanes
-(``lanes[arange(256) < sizes[:, None]]``), so the chunks come out back to
-back in block order — the TPU package's continuation-word tiers, its A/C
-interchange regions and the host repack/expand steps have no counterpart.
-A mask select's size depends on the data, so it waits for the card; the
-entries that must not (``encode_frame``, ``ingest_frame``,
-``roundtrip_frame``, ``preview_frame``, the streaming drivers of
-``engine/streaming.py``) scatter the chunks into a buffer of the
-worst-case size instead (``scatter_chunks``), or decode straight from the
-lanes (offsets 256 * b), and keep ``total`` and ``ok`` on the device.
+The compaction is C1 (``csrc/compact_chunks.cu``, wrapper
+``compact_chunks``; the plain version ``compact_chunks_plain`` is the
+row-major mask select ``lanes[arange(256) < sizes[:, None]]``): a warp
+copies the live bytes of 32 consecutive lanes to their starts, the
+cumulative sum of the sizes, so the chunks come out back to back in block
+order -- the TPU package's continuation-word tiers, its A/C interchange
+regions and the host repack/expand steps have no counterpart. The stream's
+length depends on the data, so ``compact_chunks`` reads the total on the
+host (one sync) and allocates the stream at that size; the entries that
+must not wait (``encode_frame``, ``ingest_frame``, ``roundtrip_frame``,
+``preview_frame``, the streaming drivers of ``engine/streaming.py``) run
+the same kernel into a buffer of the worst-case size instead
+(``scatter_chunks``), or decode straight from the lanes (offsets 256 * b),
+and keep ``total`` and ``ok`` on the device.
 
 Capture and playback (``ingest_frame``, ``preview_frame``; the JAX
 package's ``word_frame.ingest_frame`` / ``preview_frame``): X1
@@ -78,44 +82,84 @@ def _raise_first_bad(err: torch.Tensor, what: str) -> None:
                                  f"(code {int(err[b])})")
 
 
-def compact_chunks(lanes: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
-    """[N, 256] lanes -> the chunks back to back in block order (a
-    row-major mask select, on the lanes' device)."""
+def compact_chunks_plain(lanes: torch.Tensor, sizes: torch.Tensor
+                         ) -> torch.Tensor:
+    """The plain PyTorch version of the compaction: a row-major mask
+    select. Block b gives its first ``clamp(sizes[b], 0, 256)`` lane
+    bytes."""
     col = torch.arange(lanes.shape[1], device=lanes.device)
-    mask = col[None, :] < sizes[:, None]
+    return lanes[col[None, :] < sizes[:, None]]
+
+
+def _check_lanes(lanes: torch.Tensor, sizes: torch.Tensor) -> int:
+    """Raise ValueError unless ``lanes`` is contiguous u8 [N, 256] and
+    ``sizes`` [N] lies on its device; return N."""
+    n = lanes.shape[0] if lanes.dim() == 2 else -1
+    build.check_tensors(lanes.device, ("lanes", lanes, (n, LANE),
+                                       torch.uint8))
+    if tuple(sizes.shape) != (n,) or sizes.device != lanes.device:
+        raise ValueError(f"sizes: want [{n}] on {lanes.device}, got "
+                         f"{list(sizes.shape)} on {sizes.device}")
+    return n
+
+
+def _launch_compact(lanes: torch.Tensor, live: torch.Tensor,
+                    ends: torch.Tensor, out: torch.Tensor) -> None:
+    """C1 (``csrc/compact_chunks.cu``): block b's first ``live[b]`` lane
+    bytes (int32, 0..256) to ``out[ends[b] - live[b]:]``, ``ends`` (int64)
+    the inclusive cumulative sum of ``live``; nothing else of ``out`` is
+    written."""
+    build.launch("compact_chunks", lanes.device, lanes.data_ptr(),
+                 live.data_ptr(), ends.data_ptr(), lanes.shape[0],
+                 out.data_ptr())
+
+
+def compact_chunks(lanes: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
+    """[N, 256] lanes -> content u8 [T], the chunks back to back in block
+    order on the lanes' device: block b gives its first
+    ``clamp(sizes[b], 0, 256)`` bytes (an err block of size >= 256 all of
+    its zero lane), byte for byte the mask select
+    ``compact_chunks_plain``.
+
+    On a CUDA device: the sizes clamped, their cumulative sum, one read of
+    its last entry (the total: the one host sync, ``wait.size``), the
+    output allocated at that size and C1 launched into it; the counter
+    ``compact.bytes`` adds the total. On the CPU: the plain version."""
+    n = _check_lanes(lanes, sizes)
+    if build.on_cpu(lanes.device, "compact_chunks"):
+        with trace.span("wait.size"):
+            return compact_chunks_plain(lanes, sizes)
+    live = sizes.clamp(0, LANE).to(torch.int32)
+    ends = torch.cumsum(live, 0, dtype=torch.int64)
     with trace.span("wait.size"):
-        return lanes[mask]
+        total = int(ends[-1]) if n else 0
+    out = torch.empty(total, dtype=torch.uint8, device=lanes.device)
+    _launch_compact(lanes, live, ends, out)
+    trace.add("compact.bytes", total)
+    return out
 
 
 def scatter_chunks(lanes: torch.Tensor, sizes: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[N, 256] lanes -> (content u8 [N * 255], total i64 scalar): the
-    chunks back to back in block order in ``content[:total]``. No host
-    sync: the buffer has the worst-case size (a chunk holds at most 255
-    bytes; an err chunk's lane is zero and takes no room).
+    chunks back to back in block order in ``content[:total]``, zeros after
+    them; ``total`` is ``sizes.sum()``. No host sync: the buffer has the
+    worst-case size (a chunk holds at most 255 bytes; an err chunk, of size
+    past 255, and a negative size take no room).
 
-    Works on 8-byte words: lane b, shifted by its start's byte offset
-    within a word, is added into the 33 words from its start on. A lane is
-    zero past its chunk's size (K1's, K5's and the plain encoder's
-    contract) and the chunks do not overlap, so the bytes added into a
-    word never share a bit: the sums are the bytes, with no carries."""
-    n, lane = lanes.shape
-    dev = lanes.device
-    live = torch.where(sizes < lane, sizes, 0).to(torch.int64)
-    starts = torch.cumsum(live, 0) - live
-    shift = (starts % 8 * 8)[:, None]              # bits, 0..56
-    words = lanes.view(torch.int64)                # [N, 32] little-endian
-    lo = words << shift                            # into the start's word
-    top = (words >> (64 - shift)) & ((torch.ones_like(shift) << shift) - 1)
-    hi = torch.where(shift == 0, 0, top)           # into the next word
-    zero = words.new_zeros(n, 1)
-    spread = torch.cat([lo, zero], 1) | torch.cat([zero, hi], 1)
-    idx = (starts // 8)[:, None] + torch.arange(lane // 8 + 1, device=dev)
-    cap = n * (lane - 1)
-    out = torch.zeros(cap // 8 + lane // 8 + 2, dtype=torch.int64,
-                      device=dev)
-    out.index_add_(0, idx.view(-1), spread.view(-1))
-    return out.view(torch.uint8)[:cap], sizes.sum(dtype=torch.int64)
+    On a CUDA device C1 writes the live chunks into the zeroed buffer at
+    starts summed on the device; on the CPU the plain version's bytes go
+    to its front."""
+    n = _check_lanes(lanes, sizes)
+    live = torch.where(sizes < LANE, sizes, 0).clamp_(min=0).to(torch.int32)
+    out = torch.zeros(n * (LANE - 1), dtype=torch.uint8, device=lanes.device)
+    if build.on_cpu(lanes.device, "compact_chunks"):
+        chunks = compact_chunks_plain(lanes, live)
+        out[:chunks.numel()] = chunks
+    else:
+        _launch_compact(lanes, live, torch.cumsum(live, 0, dtype=torch.int64),
+                        out)
+    return out, sizes.sum(dtype=torch.int64)
 
 
 def frame_lanes(y, u, v, qtables, dct, fused: bool = True,

@@ -20,7 +20,8 @@ IEEE-exact.
 (``build_all`` returns the reports).
 
 The wrappers (``kernels/transform.py``, ``kernels/convert.py``,
-``entropy/encode.py``, ``entropy/decode.py`` and the probes of ``tools/``)
+``entropy/encode.py``, ``entropy/decode.py``, ``engine/device_stream.py``'s
+compaction and the probes of ``tools/``)
 call ``launch``, which counts every launch in
 ``launches``: reset the counts to see which kernels a run went through.
 """
@@ -80,6 +81,8 @@ SIGNATURES = {
                       [_P, _I64, _I64, _I64, _I64, _P, _P]),
     "lane_probes": ("myyuv_lane_probes", [_P, _I64, _I64, _I64, _P, _P]),
     "bcast_mul": ("myyuv_bcast_mul", [_P, _P, _I64, _I64, _P, _P]),
+    # C1: the lanes' compaction to the chunk stream (engine/device_stream.py)
+    "compact_chunks": ("myyuv_compact_chunks", [_P, _P, _P, _I64, _P, _P]),
 }
 
 # kernel launches per kernel name (reset the values to count a run)

@@ -29,11 +29,13 @@ What the program records:
 * ``wait.h2d`` (a pageable upload), ``wait.d2h`` (a pageable download,
   ``device_stream.to_host``), ``wait.err`` (the first bad block of an
   error array), ``wait.size`` (an output whose size depends on the data:
-  the mask-select compaction, ``torch.unique``) and ``wait.scalar`` (a
+  the compaction's length, ``torch.unique``) and ``wait.scalar`` (a
   device scalar read on the host): each place where the host blocks on
   the card, one span a wait; they do not nest in one another;
 * counters ``pageable_bytes.h2d`` and ``pageable_bytes.d2h``: the bytes of
-  each pageable copy to or from a CUDA device (none on the CPU route).
+  each pageable copy to or from a CUDA device (none on the CPU route);
+  ``compact.bytes``: the stream bytes ``device_stream.compact_chunks``
+  wrote with C1 (none on the CPU route).
 """
 
 from __future__ import annotations

@@ -15,8 +15,9 @@ slowest content) -- it prints, in ms:
   the card: host-inclusive, ``probe.host_inclusive_ms``);
 * compress by stage: K1 (DCT + quantize + Huffman encode), K3 (DCT +
   quantize) alone, K5 (Huffman encode) alone, and the compaction of K1's
-  256-byte lanes into the stream (``device_stream.compact_chunks``, a mask
-  select that waits for the card: host-inclusive);
+  256-byte lanes into the stream (``device_stream.compact_chunks``: C1
+  after a read of the stream's length, which waits for the card:
+  host-inclusive);
 * decompress by stage: T5 (``decode.parse_trees``, the tree stage alone),
   K6 (tree + payload), K4 (dequantize + IDCT) and K2 (tree + payload +
   IDCT);

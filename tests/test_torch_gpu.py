@@ -10,7 +10,7 @@ probe or lane"`` for T1-T7, ``-k "sharded or card"`` for the multi-device
 path, the second card and the cube, ``-k fast`` for F1 and F2,
 ``-k encphase`` for K1's measurement instances and the production
 encoders' recorded SASS, ``-k trace`` for the span recorder's waits and
-pageable bytes).
+pageable bytes, ``-k compact`` for the compaction C1).
 
 Tolerance: exact equality (bytes, sizes, pixels, error codes, totals,
 flags), except the sweep's PSNR on the card against the CPU's, to 1e-3:
@@ -1082,7 +1082,8 @@ def test_fast_routes_launch_f1_k5_k6_f2(rng, cuda, monkeypatch):
     coeffs = transform.fast_dct_quantize_blocks(*planes, qt, dct)
     (sizes, content), n = counted(lambda: device_stream.compress_frame(
         *planes, qt, dct, precision="fast"))
-    assert n == {"fast_dct_quantize": 1, "huffman_encode": 1}
+    assert n == {"fast_dct_quantize": 1, "huffman_encode": 1,
+                 "compact_chunks": 1}
     offsets = torch.cumsum(sizes, 0, dtype=torch.int64) - sizes
     assert torch.equal(decode.decode_blocks(content, sizes, offsets)[0],
                        coeffs)
@@ -1270,6 +1271,70 @@ def test_trace_pins_the_file_paths_waits_and_pageable_bytes(rng, cuda):
                          "wait.d2h": 2}
     assert waits(ds) == {"wait.h2d": 4, "wait.err": 1, "wait.d2h": 3}
     assert cc == {"pageable_bytes.h2d": tables + npix,
-                  "pageable_bytes.d2h": nblk * 4 + content}
+                  "pageable_bytes.d2h": nblk * 4 + content,
+                  "compact.bytes": content}
     assert dc == {"pageable_bytes.h2d": tables + nblk + content,
                   "pageable_bytes.d2h": npix}
+
+
+EDGE_SIZES = (0, 1, 13, 255, 256, 300, -1)
+
+
+def _edge_lanes(rng, n, cuda):
+    """Random lanes [n, 256] and sizes drawn from ``EDGE_SIZES`` (every
+    one of them where n allows) on the card."""
+    sizes = rng.choice(EDGE_SIZES, n)
+    sizes[:min(n, len(EDGE_SIZES))] = EDGE_SIZES[:n]
+    return (torch.from_numpy(rng.integers(0, 256, (n, 256), np.uint8)
+                             ).to(cuda),
+            torch.from_numpy(sizes.astype(np.int32)).to(cuda))
+
+
+@pytest.mark.parametrize("n", [0, 1, 17112, 391680])
+def test_compact_kernel_matches_plain(rng, cuda, n):
+    """C1 against the mask select at no block, one block, a 992x736 frame's
+    blocks and 8 x 1920x1088 frames' blocks, sizes 0, 1, 13, 255, 256, 300
+    and -1 (one block: each in turn), one launch a call."""
+    cases = ([_edge_lanes(rng, n, cuda)] if n != 1 else
+             [(_edge_lanes(rng, 1, cuda)[0],
+               torch.tensor([s], dtype=torch.int32, device=cuda))
+              for s in EDGE_SIZES])
+    for lanes, sizes in cases:
+        before = build.launches["compact_chunks"]
+        got = device_stream.compact_chunks(lanes, sizes)
+        assert build.launches["compact_chunks"] == before + 1
+        want = device_stream.compact_chunks_plain(lanes, sizes)
+        assert got.is_cuda and got.dtype == torch.uint8
+        assert torch.equal(got, want), sizes[:8].tolist()
+
+
+@pytest.mark.parametrize("n", [0, 1, 17112, 391680])
+def test_compact_scatter_on_the_card_equals_the_cpu(rng, cuda, n):
+    """``scatter_chunks`` on the card (C1 into the zeroed worst-case
+    buffer) against the CPU's: the whole buffer, zeros past the chunks
+    included; ``total`` stays on the card."""
+    lanes, sizes = _edge_lanes(rng, n, cuda)
+    content, total = device_stream.scatter_chunks(lanes, sizes)
+    assert total.is_cuda and content.is_cuda
+    want, want_total = device_stream.scatter_chunks(lanes.cpu(), sizes.cpu())
+    assert torch.equal(content.cpu(), want)
+    assert int(total) == int(want_total)
+
+
+def test_compact_once_a_batch_and_its_counter(rng, cuda):
+    """One ``compress_batch`` of 8 frames launches C1 once; with the
+    recorder on, ``compact.bytes`` is the stream's length."""
+    from myyuv_tpu_torch.runtime import trace
+    b, h, w = 8, 64, 128
+    frames = [_frame(rng, h, w) for _ in range(b)]
+    planes = [torch.from_numpy(np.stack([f[i] for f in frames])).to(cuda)
+              for i in range(3)]
+    dct, qt = pipeline.codec_params([50] * 3, cuda)
+    before = dict(build.launches)
+    trace.start()
+    sizes, content = device_stream.compress_batch(*planes, qt, dct)
+    _, counters = trace.stop()
+    assert build.launches["compact_chunks"] == before["compact_chunks"] + 1
+    assert build.launches["dct_encode"] == before["dct_encode"] + 1
+    assert counters["compact.bytes"] == content.numel() > 0
+    assert content.numel() == int(sizes.sum())

@@ -130,6 +130,38 @@ def test_scatter_chunks_equals_the_mask_select(rng, case):
     assert torch.equal(content[:want.numel()], want)
 
 
+EDGE_SIZES = (0, 1, 13, 255, 256, 300, -1)
+
+
+@pytest.mark.parametrize("size", [*EDGE_SIZES, "mixed", "no_blocks"])
+def test_compactions_equal_the_mask_select_definition(rng, size):
+    """``compact_chunks`` (the plain version on the CPU) and
+    ``scatter_chunks`` against the definition, chunk by chunk in numpy, on
+    lanes that are not zero past their sizes: block b gives its first
+    clamp(size, 0, 256) bytes to the compaction (an err block of size >=
+    256 all of its lane), and its first size bytes to ``scatter_chunks``
+    only where 0 <= size < 256, zeros after the live chunks there."""
+    n = {"mixed": 2000, "no_blocks": 0}.get(size, 64)
+    sizes = (rng.choice(EDGE_SIZES, n) if size == "mixed"
+             else np.full(n, 0 if size == "no_blocks" else size))
+    sizes = sizes.astype(np.int32)
+    lanes = rng.integers(0, 256, (n, 256)).astype(np.uint8)
+    lanes_t, sizes_t = torch.from_numpy(lanes), torch.from_numpy(sizes)
+
+    def chunks(keep):
+        return b"".join(lanes[b, :keep(int(s))].tobytes()
+                        for b, s in enumerate(sizes))
+
+    got = device_stream.compact_chunks(lanes_t, sizes_t)
+    assert got.dtype == torch.uint8
+    assert got.numpy().tobytes() == chunks(lambda s: min(max(s, 0), 256))
+    content, total = device_stream.scatter_chunks(lanes_t, sizes_t)
+    want = chunks(lambda s: s if 0 <= s < 256 else 0)
+    assert content.numel() == n * 255 and int(total) == int(sizes.sum())
+    assert content[:len(want)].numpy().tobytes() == want
+    assert not content[len(want):].any()
+
+
 def test_empty_streams():
     dct, qt = pipeline.codec_params([50] * 3, "cpu")
     ok, tot, _ = streaming.roundtrip_stream([], qt, dct)
