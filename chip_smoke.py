@@ -79,8 +79,9 @@ failure ending the run with a non-zero exit code:
     frame API and the plain versions, one launch of each kernel; the
     drivers of ``engine/streaming.py`` (``roundtrip_stream``,
     ``ingest_stream``, ``preview_stream``, ``compress_stream``) with flags,
-    totals and bytes equal to the frame API's and 32 launches a kernel (C1
-    64: ingest and ``compress_stream`` compact with ``scatter_chunks``); the
+    totals and bytes equal to the frame API's and 32 launches a kernel a
+    driver (``compress_stream`` replays a CUDA graph a frame: K1 and C1
+    ten launches, two in each of its five slots); the
     round trip and ingest drivers queue 16 frames behind a sleep kernel
     without the card running dry (no host sync); sustained round trip,
     ingest, preview and ``compress_stream`` fps on the host clock;
@@ -936,10 +937,12 @@ def main() -> int:
           "a streaming driver reported a bad frame or dropped one")
     check((tot_r == stream.numel()).all() and (tot_i == stream.numel()).all(),
           "streamed totals differ from the frame API")
+    # compress_stream replays a graph a frame: its five slots (depth 3,
+    # plus 2) each launch K1 and C1 once eagerly and once in the capture
     want = dict.fromkeys(ALL, 0)
-    want.update(dct_encode=3 * NSTREAM, decode_idct=2 * NSTREAM,
+    want.update(dct_encode=2 * NSTREAM + 10, decode_idct=2 * NSTREAM,
                 bgrx_to_iyuv=NSTREAM, iyuv_to_bgrx=NSTREAM,
-                compact_chunks=2 * NSTREAM)
+                compact_chunks=NSTREAM + 10)
     check(launches["streaming"] == want,
           f"streaming launched {launches['streaming']}")
     for name, drive, item in (

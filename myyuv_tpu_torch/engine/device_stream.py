@@ -57,7 +57,7 @@ kernel of its own.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -220,14 +220,16 @@ def _compress(y, u, v, qtables, dct, fused: bool, precision: str):
     return sizes, content
 
 
-def split_planes(sizes: np.ndarray, content: np.ndarray, h: int,
-                 w: int) -> List[Stream]:
-    """A frame's (sizes, content) -> [(sizes u8, content u8)] per plane."""
+def split_planes(sizes: np.ndarray, content: np.ndarray, h: int, w: int,
+                 totals: Optional[Sequence[int]] = None) -> List[Stream]:
+    """A frame's (sizes, content) -> [(sizes u8, content u8)] per plane;
+    ``totals``, the planes' content bytes, are summed from the sizes when
+    not given."""
     with trace.span("stream.split"):
         out, lo, pos = [], 0, 0
-        for n in plane_block_counts(h, w):
+        for i, n in enumerate(plane_block_counts(h, w)):
             s = sizes[lo:lo + n]
-            t = int(s.sum(dtype=np.int64))
+            t = int(s.sum(dtype=np.int64)) if totals is None else totals[i]
             out.append((s.astype(np.uint8), content[pos:pos + t]))
             lo, pos = lo + n, pos + t
         return out
@@ -416,6 +418,29 @@ def _scan_bodies(ys, us, vs, qtables, dct, precision: str = "exact"):
             torch.stack([o for _, o in outs]))
 
 
+def capture_graph(body: Callable, device: torch.device,
+                  warm: Optional[Callable] = None):
+    """``body()`` captured as one CUDA graph on ``device`` -> (graph, what
+    the captured ``body`` returned, launches). ``warm()`` (default
+    ``body``) runs eagerly on a side stream first, so each kernel's module
+    is loaded before the capture (loading one inside it can break it); the
+    capture synchronises the card. ``launches``: the ``build.launches`` the
+    capture recorded, which each replay makes on the card (a replay adds
+    nothing to ``build.launches``). A failed capture raises."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        (warm or body)()
+    torch.cuda.current_stream(device).wait_stream(side)
+    before = dict(build.launches)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = body()
+    launches = {name: build.launches[name] - n for name, n in before.items()
+                if build.launches[name] > n}
+    return graph, out, launches
+
+
 class ScanGraph:
     """One CUDA graph of K ``roundtrip_frame`` bodies over [K, H, W] frames
     on one CUDA device: K launches of K1 and K of K2 (with
@@ -467,20 +492,10 @@ class ScanGraph:
 
     def capture(self) -> None:
         args = (self.ys, self.us, self.vs, self.qtables, self.dct)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            _scan_bodies(*(a[:1] for a in args[:3]), *args[3:],
-                         self.precision)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        before = dict(build.launches)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.totals, self.oks = _scan_bodies(*args, self.precision)
-        self.launches = {name: build.launches[name] - n
-                         for name, n in before.items()
-                         if build.launches[name] > n}
-        self.graph = graph
+        self.graph, (self.totals, self.oks), self.launches = capture_graph(
+            lambda: _scan_bodies(*args, self.precision), self.device,
+            warm=lambda: _scan_bodies(*(a[:1] for a in args[:3]),
+                                      *args[3:], self.precision))
 
     def replay(self) -> None:
         """One replay of the captured bodies on the current stream."""
@@ -587,9 +602,11 @@ def ingest_frame(pixels: torch.Tensor, qtables: torch.Tensor,
 
 def _ingest(pixels, qtables, dct, precision: str = "exact"):
     """``ingest_frame`` at ``precision`` (X1, then F1 and K5 when fast):
-    the step of ``streaming.ingest_stream``."""
-    return encode_frame(*as_one_frame(*convert.bgrx_to_iyuv(pixels)),
-                        qtables, dct, precision)
+    the step of ``streaming.ingest_stream`` and of ``compress_stream`` on
+    BGRX frames (span ``stream.ingest_frame``)."""
+    with trace.span("stream.ingest_frame"):
+        return encode_frame(*as_one_frame(*convert.bgrx_to_iyuv(pixels)),
+                            qtables, dct, precision)
 
 
 def preview_frame(content: torch.Tensor, sizes: torch.Tensor,

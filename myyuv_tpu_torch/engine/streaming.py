@@ -12,12 +12,15 @@ to back and waits for the card only where a result must reach the host:
   the card and bring them down once, at the drain: one ``torch.stack``,
   one d2h. Every step they run is free of host syncs (the round trip
   decodes K1's lanes in place, ingest compacts with ``scatter_chunks``);
-* ``compress_stream`` (the capture loop with the bytes) copies each
-  frame's sizes and flags into pinned host buffers with
+* ``compress_stream`` (the capture loop with the bytes; frames as (y, u,
+  v) planes or as BGRX pixels, which take ``ingest_stream``'s X1 first)
+  replays one CUDA graph a frame (the encode and the frame's head: chunk
+  totals, ok and sizes), copies the head into a pinned host buffer with
   ``non_blocking=True`` and records one CUDA event per frame; with
-  ``depth`` frames in flight it waits for the oldest frame's event alone,
+  ``depth`` frames queued it waits for the oldest frame's event alone,
   then pulls that frame's ``content[:total]`` on a side stream, so the
-  pull does not wait for the frames queued behind it.
+  pull does not wait for the frames queued behind it, and assembles the
+  frame pulled before it while this pull runs.
 
 ``roundtrip_scan_stream`` and ``sustained_scan_fps`` queue K frames a call
 through ``device_stream.roundtrip_scan``: one CUDA graph replay of K
@@ -38,16 +41,21 @@ and no graphs.
 
 from __future__ import annotations
 
+import itertools
 import time
 from collections import deque
-from typing import Iterable, Iterator, List, Sequence, Tuple
+from typing import Iterable, Iterator, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..kernels import convert
+from ..kernels import convert, transform
+from ..runtime import trace
 from ..runtime.errors import BitstreamError
 from . import device_stream as ds
+
+# a frame of ``compress_stream``: BGRX [H, W, 4] uint8, or (y, u, v) planes
+Frame = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
 def _drain(*flags: List[torch.Tensor]) -> List[np.ndarray]:
@@ -186,84 +194,217 @@ def sustained_pipeline_fps(planes_np: Sequence[np.ndarray],
 
 
 def _pull(t: torch.Tensor) -> torch.Tensor:
-    """Start copying ``t`` into a pinned host buffer (CUDA) and return the
-    buffer; ready once the card has passed the copy. A CPU tensor is its
-    own copy."""
+    """Start copying ``t`` into a pinned host buffer (CUDA; its bytes in
+    ``pinned_bytes.d2h``) and return the buffer; ready once the card has
+    passed the copy. A CPU tensor is its own copy."""
     if t.device.type == "cpu":
         return t
+    trace.add("pinned_bytes.d2h", t.nbytes)
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     return host
 
 
-def compress_stream(frames: Iterable[Sequence[torch.Tensor]],
-                    qtables: torch.Tensor, dct: torch.Tensor,
-                    depth: int = 3, precision: str = "exact"
+# a frame's head: six chunk totals and its ok, int64, before its sizes
+HEAD = 7 * 8
+
+
+def _head(sizes: torch.Tensor, ok: torch.Tensor, h: int,
+          w: int) -> torch.Tensor:
+    """A frame's head on its device, one u8 tensor that one pull brings
+    down: ``HEAD`` bytes of int64, the chunk bytes of each quarter of the
+    Y blocks, of the U blocks and of the V blocks (a 4:2:0 frame's Y plane
+    has four times a chroma plane's blocks), then ok; then the sizes as
+    u8. Three launches: one reduction and two casting copies."""
+    nc = ds.plane_block_counts(h, w)[1]
+    head = torch.empty(HEAD + sizes.numel(), dtype=torch.uint8,
+                       device=sizes.device)
+    meta = head[:HEAD].view(torch.int64)
+    torch.sum(sizes.view(-1, nc), 1, dtype=torch.int64, out=meta[:6])
+    meta[6] = ok
+    head[HEAD:] = sizes
+    return head
+
+
+def _geometry(frame: Frame) -> Tuple[int, int]:
+    """A frame's (H, W); a BGRX frame must be one [H, W, 4] picture."""
+    if isinstance(frame, torch.Tensor):
+        if frame.dim() != 3:
+            raise ValueError("a BGRX frame must be [H, W, 4], got "
+                             f"{list(frame.shape)}")
+        return tuple(frame.shape[:2])
+    return tuple(frame[0].shape)
+
+
+def _encode(frame: Frame, qtables: torch.Tensor, dct: torch.Tensor,
+            precision: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One frame of ``compress_stream`` on the CPU -> (head, content): BGRX
+    pixels through ``ds.ingest_frame``'s step (X1 first), planes through
+    ``ds.encode_frame``."""
+    h, w = _geometry(frame)
+    if isinstance(frame, torch.Tensor):
+        sizes, content, _, ok = ds._ingest(frame, qtables, dct, precision)
+    else:
+        sizes, content, _, ok = ds.encode_frame(*frame, qtables, dct,
+                                                precision)
+    return _head(sizes, ok, h, w), content
+
+
+class _Slot:
+    """A frame's place on the card in ``compress_stream``: (y, u, v)
+    planes of its own and one CUDA graph of ``ds.encode_frame`` and
+    ``_head`` on them (K1, or F1 and K5 when fast, then ``scatter_chunks``'
+    zero-fill, cumulative sum and C1, and the head's three launches),
+    captured at the slot's first frame by ``ds.capture_graph``. The graph
+    owns its outputs, the head and the content buffer; a replay
+    overwrites them."""
+
+    def __init__(self, h: int, w: int, device: torch.device):
+        self.planes = [torch.empty(s, dtype=torch.uint8, device=device)
+                       for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+        self.graph = self.out = None
+
+    def run(self, frame: Frame, qtables: torch.Tensor, dct: torch.Tensor,
+            precision: str) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(head, content) of ``frame``: X1 of BGRX pixels into the
+        slot's planes (span ``stream.ingest_frame`` around it and the
+        replay), or the planes copied in, then one replay."""
+        if isinstance(frame, torch.Tensor):
+            with trace.span("stream.ingest_frame"):
+                convert.bgrx_to_iyuv(frame, out=self.planes)
+                return self._replay(qtables, dct, precision)
+        transform.check_frame(*frame, qtables, dct)
+        for dst, src in zip(self.planes, frame):
+            dst.copy_(src)
+        return self._replay(qtables, dct, precision)
+
+    def _replay(self, qtables, dct, precision):
+        if self.graph is None:
+            y, u, v = self.planes
+
+            def body():
+                sizes, content, _, ok = ds.encode_frame(y, u, v, qtables,
+                                                        dct, precision)
+                return _head(sizes, ok, *y.shape), content
+            self.graph, self.out, _ = ds.capture_graph(body, y.device)
+        self.graph.replay()
+        return self.out
+
+
+def compress_stream(frames: Iterable[Frame], qtables: torch.Tensor,
+                    dct: torch.Tensor, depth: int = 3,
+                    precision: str = "exact"
                     ) -> Iterator[List[ds.Stream]]:
-    """Streamed compress of device-resident (y, u, v) frames: yields each
-    frame's [(sizes u8, content u8) x 3] plane streams, the bytes of
-    ``ds.compress_frame_to_streams``, in order.
+    """Streamed compress of device-resident frames, each a BGRX [H, W, 4]
+    uint8 tensor or a (y, u, v) triple of uint8 planes (H and W multiples
+    of 16): yields each frame's [(sizes u8, content u8) x 3] plane streams,
+    in order: the bytes of ``ds.compress_frame_to_streams`` on the planes,
+    or on X1's planes of the pixels.
 
     Per frame: ``ds.encode_frame`` (K1, or F1 and K5 when fast, and the
-    sync-free compaction), then non-blocking copies of its sizes and
-    (total, ok) into pinned buffers and one CUDA event. The next frames
-    are queued before the oldest
-    pending frame is assembled; ``depth`` bounds the frames in flight.
-    Assembly waits for that frame's event only and pulls its
-    ``content[:total]`` on a side stream. A chunk longer than 255 bytes
-    raises BitstreamError, as ``compress_frame`` does."""
-    pending = deque()
-    side = None
+    sync-free compaction), after X1 for BGRX (``ds.ingest_frame``'s step,
+    span ``stream.ingest_frame``), and the frame's head (``_head``: chunk
+    totals, ok and u8 sizes); then a non-blocking copy of the head into a
+    pinned buffer and one CUDA event. On a CUDA device the step after X1
+    is one replay of a CUDA graph (``_Slot``): frame k takes slot k mod
+    (depth + 2) of its geometry, so a slot comes round again only after
+    its last frame was assembled; the first frame of a slot captures its
+    graph, which waits for the card once.
 
-    def assemble(content, sizes_h, flags_h, event, h, w):
-        if event is not None:
-            event.synchronize()
-        total, ok = flags_h.tolist()
-        if not ok:
-            raise BitstreamError("Huffman encode failed: a chunk does not "
-                                 "fit its 8-bit size")
-        data = content[:total]
+    ``depth`` frames stay queued on the card behind the one whose stream
+    is on its way to the host. Once a frame is queued past them, the
+    oldest queued frame's event is waited for (span ``wait.event``) and
+    its ``content[:total]`` pulled on a side stream; then the frame pulled
+    before it is assembled: the wait for its pull (span ``wait.pull``: the
+    side stream's synchronize) and ``split_planes``. So the host's wait
+    for a pull overlaps the caller's work and the next frame's launch.
+    Each pinned pull adds its bytes to the counter ``pinned_bytes.d2h``.
+    On the CPU the step runs eagerly, the wait spans hold no wait and
+    nothing is pinned. A chunk longer than 255 bytes raises BitstreamError
+    at its frame, as ``compress_frame`` does."""
+    queued = deque()
+    pulling = None
+    side, slots, used = None, {}, {}
+
+    def pull(content, head_h, event, h, w):
+        with trace.span("wait.event"):
+            if event is not None:
+                event.synchronize()
+        *parts, ok = head_h[:HEAD].view(torch.int64).tolist()
+        totals = [sum(parts[:4]), *parts[4:]]
+        data = content[:sum(totals) if ok else 0]
         if side is not None:
             with torch.cuda.stream(side):
                 data = _pull(data)
-            side.synchronize()
-        return ds.split_planes(sizes_h.numpy(), data.numpy(), h, w)
+        return data, head_h, totals, ok, h, w
 
-    for y, u, v in frames:
-        h, w = y.shape
-        sizes, content, total, ok = ds.encode_frame(y, u, v, qtables, dct,
-                                                    precision)
-        flags = torch.stack([total, ok.to(torch.int64)])
+    def assemble(data, head_h, totals, ok, h, w):
+        with trace.span("wait.pull"):
+            if side is not None:
+                side.synchronize()
+        if not ok:
+            raise BitstreamError("Huffman encode failed: a chunk does not "
+                                 "fit its 8-bit size")
+        return ds.split_planes(head_h[HEAD:].numpy(), data.numpy(), h, w,
+                               totals)
+
+    def turn():
+        """Start the oldest queued frame's pull; assemble the one before."""
+        nonlocal pulling
+        done = assemble(*pulling) if pulling is not None else None
+        pulling = pull(*queued.popleft())
+        return done
+
+    for frame in frames:
+        h, w = _geometry(frame)
+        device = (frame if isinstance(frame, torch.Tensor)
+                  else frame[0]).device
         event = None
-        if y.is_cuda:
+        if device.type == "cuda":
             if side is None:
-                side = torch.cuda.Stream(y.device)
-            event = torch.cuda.Event()
-            pulled = (_pull(sizes), _pull(flags))
-            event.record(torch.cuda.current_stream(y.device))
+                side = torch.cuda.Stream(device)
+            ring = slots.setdefault((h, w), [])
+            k = used[h, w] = used.get((h, w), -1) + 1
+            if len(ring) < depth + 2:
+                transform.frame_blocks(h, w)
+                ring.append(_Slot(h, w, device))
+            with torch.cuda.device(device):
+                head, content = ring[k % len(ring)].run(frame, qtables,
+                                                        dct, precision)
+                event = torch.cuda.Event()
+                head_h = _pull(head)
+                event.record()
         else:
-            pulled = (sizes, flags)
-        pending.append((content, *pulled, event, h, w))
-        while len(pending) > depth:
-            yield assemble(*pending.popleft())
-    while pending:
-        yield assemble(*pending.popleft())
+            head_h, content = _encode(frame, qtables, dct, precision)
+        queued.append((content, head_h, event, h, w))
+        if len(queued) > depth:
+            done = turn()
+            if done is not None:
+                yield done
+    while queued:
+        done = turn()
+        if done is not None:
+            yield done
+    if pulling is not None:
+        yield assemble(*pulling)
 
 
 def compress_stream_timed(planes_np: Sequence[np.ndarray],
                           qtables: torch.Tensor, dct: torch.Tensor,
                           n_frames: int = 16, depth: int = 3):
     """Stream ``n_frames`` copies of one frame through ``compress_stream``
-    on ``qtables.device`` after a warm run. Returns (fps on the host clock,
+    on ``qtables.device``, after ``depth + 1`` warm frames of the same
+    stream (every slot's graph captured). Returns (fps on the host clock,
     compressed bytes of the frame, the frame's plane streams): the
     sustained compress rate with the pulls included."""
     frame = ds.to_device(planes_np, qtables.device)
-    (first,) = compress_stream([frame], qtables, dct, depth)
-    k = 0
+    stream = compress_stream(itertools.repeat(frame), qtables, dct, depth)
+    first = next(stream)
+    for _ in range(depth):
+        next(stream)
     t0 = time.perf_counter()
-    for _ in compress_stream([frame] * n_frames, qtables, dct, depth):
-        k += 1
+    for _ in range(n_frames):
+        next(stream)
     elapsed = time.perf_counter() - t0
-    if k != n_frames:
-        raise BitstreamError("compress_stream dropped frames")
+    stream.close()
     return n_frames / elapsed, sum(int(c.size) for _, c in first), first

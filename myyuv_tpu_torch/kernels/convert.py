@@ -11,7 +11,7 @@ is no fallback.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -21,22 +21,35 @@ from . import device as kdev
 U8 = torch.uint8
 
 
-def bgrx_to_iyuv(pixels: torch.Tensor
+def bgrx_to_iyuv(pixels: torch.Tensor,
+                 out: Optional[Sequence[torch.Tensor]] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """[..., H, W, 4] uint8 BGRX (top-down, contiguous, H and W even) ->
-    (Y [..., H, W], U, V [..., H/2, W/2]) uint8 planes on the same device.
-    Raises ValueError on other shapes."""
+    (Y [..., H, W], U, V [..., H/2, W/2]) uint8 planes on the same device,
+    new ones or ``out``'s, written in place. Raises ValueError on other
+    shapes."""
     if pixels.dim() < 3 or pixels.shape[-3] % 2 or pixels.shape[-2] % 2:
         raise ValueError("BGRX pixels must be [..., H, W, 4] with H and W "
                          "even")
     *lead, h, w, _ = pixels.shape
     dev = pixels.device
+    luma, chroma = (*lead, h, w), (*lead, h // 2, w // 2)
     build.check_tensors(dev, ("pixels", pixels, (*lead, h, w, 4), U8))
+    if out is not None:
+        build.check_tensors(dev, *((name, t, shape, U8) for name, t, shape
+                                   in zip("yuv", out,
+                                          (luma, chroma, chroma))))
     if build.on_cpu(dev, "bgrx_to_iyuv"):
-        return kdev.bgrx_to_iyuv(pixels)
-    y = torch.empty((*lead, h, w), dtype=U8, device=dev)
-    u = torch.empty((*lead, h // 2, w // 2), dtype=U8, device=dev)
-    v = torch.empty_like(u)
+        planes = kdev.bgrx_to_iyuv(pixels)
+        if out is None:
+            return planes
+        for dst, src in zip(out, planes):
+            dst.copy_(src)
+        return tuple(out)
+    if out is None:
+        out = [torch.empty(s, dtype=U8, device=dev)
+               for s in (luma, chroma, chroma)]
+    y, u, v = out
     if y.numel():
         build.launch("bgrx_to_iyuv", dev, pixels.data_ptr(), y.numel() // w,
                      w, y.data_ptr(), u.data_ptr(), v.data_ptr())

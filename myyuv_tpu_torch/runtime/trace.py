@@ -23,19 +23,27 @@ What the program records:
 * ``pipeline.compress_dct``, ``pipeline.decompress_dct``,
   ``pipeline.codec_params``: the file API's entries and its tables;
 * ``stream.compress_frame``, ``stream.decompress_frame``,
-  ``stream.roundtrip_frame`` (the batch entries record these too) and
-  ``stream.split``: the frame codec on the device (``device_stream``);
+  ``stream.roundtrip_frame`` (the batch entries record these too),
+  ``stream.ingest_frame`` (X1 and the sync-free encode of BGRX pixels:
+  ``ingest_frame``, ``streaming.ingest_stream`` and
+  ``streaming.compress_stream`` on BGRX frames) and ``stream.split``: the
+  frame codec on the device (``device_stream``);
 * ``sweep.quality``: one quality of ``sweep.quality_sweep``;
 * ``wait.h2d`` (a pageable upload), ``wait.d2h`` (a pageable download,
   ``device_stream.to_host``), ``wait.err`` (the first bad block of an
   error array), ``wait.size`` (an output whose size depends on the data:
-  the compaction's length, ``torch.unique``) and ``wait.scalar`` (a
-  device scalar read on the host): each place where the host blocks on
-  the card, one span a wait; they do not nest in one another;
+  the compaction's length, ``torch.unique``), ``wait.scalar`` (a device
+  scalar read on the host), ``wait.event`` (``streaming.compress_stream``
+  waiting for its oldest queued frame's event) and ``wait.pull`` (its
+  side stream's synchronize on a frame's pinned pull of the stream): each
+  place where the host blocks on the card, one span a wait; they do not
+  nest in one another;
 * counters ``pageable_bytes.h2d`` and ``pageable_bytes.d2h``: the bytes of
   each pageable copy to or from a CUDA device (none on the CPU route);
-  ``compact.bytes``: the stream bytes ``device_stream.compact_chunks``
-  wrote with C1 (none on the CPU route).
+  ``pinned_bytes.d2h``: the bytes ``streaming.compress_stream`` pulls into
+  pinned host buffers, each frame's head and stream (none on the CPU
+  route); ``compact.bytes``: the stream bytes
+  ``device_stream.compact_chunks`` wrote with C1 (none on the CPU route).
 """
 
 from __future__ import annotations

@@ -115,6 +115,26 @@ def test_convert_checks_its_inputs():
         convert.iyuv_to_bgrx(y.to("meta"), c.to("meta"), c.to("meta"))
 
 
+def test_x1_into_given_planes(rng):
+    """``bgrx_to_iyuv(out=...)`` writes the planes it would return into the
+    given ones and returns them; it refuses planes of another shape or
+    dtype."""
+    px = torch.from_numpy(rng.integers(0, 256, (2, 16, 24, 4), np.uint8))
+    out = [torch.empty(s, dtype=torch.uint8)
+           for s in ((2, 16, 24), (2, 8, 12), (2, 8, 12))]
+    got = convert.bgrx_to_iyuv(px, out=out)
+    assert all(g is o for g, o in zip(got, out))
+    for g, want in zip(got, kdev.bgrx_to_iyuv(px)):
+        _equal(want, g)
+    for bad in ((2, 16, 24), (2, 8, 12), (2, 12, 8)), ((16, 24), (8, 12),
+                                                       (8, 12)):
+        with pytest.raises(ValueError):
+            convert.bgrx_to_iyuv(px, out=[torch.empty(s, dtype=torch.uint8)
+                                          for s in bad])
+    with pytest.raises(ValueError):
+        convert.bgrx_to_iyuv(px, out=[o.to(torch.int16) for o in out])
+
+
 def _jax_tables(q):
     return [np.asarray(t) for t in jax_batch.plane_qtables([q] * 3)]
 

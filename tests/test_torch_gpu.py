@@ -593,6 +593,77 @@ def test_streaming_drivers_equal_frame_api(rng, cuda, depth):
             assert np.array_equal(gs, ss) and np.array_equal(gc, sc)
 
 
+@pytest.mark.parametrize("depth", [1, 3])
+def test_streaming_compress_stream_of_bgrx_and_its_trace(rng, cuda, depth):
+    """compress_stream on BGRX frames in device memory (random and
+    saturated colours): the streams of X1 followed by
+    ``compress_frame_to_streams``, on the card and on the CPU; with the
+    recorder on, one ingest span and one wait of each kind a frame, and the
+    exact bytes of every pinned pull (the head: seven int64 and the u8
+    sizes; the stream)."""
+    from myyuv_tpu_torch.runtime import trace
+    h, w = 256, 512
+    px = [torch.from_numpy(f).to(cuda) for f in np.concatenate([
+        rng.integers(0, 256, (3, h, w, 4)),
+        255 * rng.integers(0, 2, (3, h, w, 4))]).astype(np.uint8)]
+    dct, qt = pipeline.codec_params([50] * 3, cuda)
+    dct_c, qt_c = pipeline.codec_params([50] * 3, "cpu")
+    want = []
+    for p in px:
+        planes = [t.cpu().numpy() for t in convert.bgrx_to_iyuv(p)]
+        card = device_stream.compress_frame_to_streams(planes, qt, dct)
+        plain = device_stream.compress_frame_to_streams(
+            [t.numpy() for t in convert.bgrx_to_iyuv(p.cpu())], qt_c, dct_c)
+        for (a, b), (c, d) in zip(card, plain):
+            assert np.array_equal(a, c) and np.array_equal(b, d)
+        want.append(card)
+    trace.start()
+    got = list(streaming.compress_stream(px, qt, dct, depth=depth))
+    spans, counters = trace.stop()
+    assert len(got) == len(px)
+    for streams, ws in zip(got, want):
+        for (gs, gc), (ss, sc) in zip(streams, ws):
+            assert np.array_equal(gs, ss) and np.array_equal(gc, sc)
+    names = {}
+    for n, _, _, _ in spans:
+        names[n] = names.get(n, 0) + 1
+    assert names == {"stream.ingest_frame": 6, "wait.event": 6,
+                     "wait.pull": 6, "stream.split": 6}
+    nblk = h * w * 3 // 2 // 64
+    content = sum(int(c.size) for st in got for _, c in st)
+    assert counters == {"pinned_bytes.d2h": 6 * (nblk + 56) + content}
+
+
+def test_compress_stream_slots_by_geometry_and_replays(rng, cuda):
+    """compress_stream on the card over two geometries and both kinds of
+    frame, interleaved, at depth 2: each frame's streams are the frame
+    API's, each geometry fills its own four slots (depth + 2), and the
+    replays launch nothing from Python (K1 and C1 twice a slot: eagerly
+    and in the capture; X1 once a BGRX frame)."""
+    sizes = [(64, 128), (128, 96)]
+    frames, want = [], []
+    dct, qt = pipeline.codec_params([50] * 3, cuda)
+    for i in range(10):
+        h, w = sizes[i % 2]
+        planes = _stream_frames(rng, 1, h, w)[0]
+        dev = device_stream.to_device(planes, cuda)
+        frames.append(convert.iyuv_to_bgrx(*dev) if i % 3 else dev)
+        want.append(device_stream.compress_frame_to_streams(
+            [t.cpu().numpy() for t in convert.bgrx_to_iyuv(frames[-1])]
+            if i % 3 else planes, qt, dct))
+    torch.cuda.synchronize()
+    before = dict(build.launches)
+    got = list(streaming.compress_stream(frames, qt, dct, depth=2))
+    launched = {k: build.launches[k] - n for k, n in before.items()
+                if build.launches[k] > n}
+    assert len(got) == len(frames)
+    for streams, ws in zip(got, want):
+        for (gs, gc), (ss, sc) in zip(streams, ws):
+            assert np.array_equal(gs, ss) and np.array_equal(gc, sc)
+    assert launched == {"dct_encode": 16, "compact_chunks": 16,
+                        "bgrx_to_iyuv": 6}
+
+
 def test_streaming_roundtrip_queues_16_frames_without_a_host_sync(rng,
                                                                    cuda):
     """roundtrip_stream and ingest_stream take 16 frames while a sleep

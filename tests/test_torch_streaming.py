@@ -1,8 +1,9 @@
 """The port's streaming drivers (``engine/streaming.py``) on the CPU, where
 they run the plain versions: flags and totals against the frame API, and
-``compress_stream``'s bytes against the frame API and the JAX package;
-``device_stream.roundtrip_scan`` against the JAX package's and the frame
-API.
+``compress_stream``'s bytes against the frame API and the JAX package, and
+on BGRX frames against X1 and the frame API and the benchmark's plain
+reference of the capture path; ``device_stream.roundtrip_scan`` against
+the JAX package's and the frame API.
 
 Tolerance: exact equality (flags, byte counts, stream bytes)."""
 
@@ -15,8 +16,10 @@ from myyuv_tpu import native
 from myyuv_tpu.engine import batch as jax_batch
 from myyuv_tpu.engine import device_stream as jax_ds
 from myyuv_tpu.engine.streaming import FLAG_CHUNK
+from benchmark.reference import capture as capture_reference
 from myyuv_tpu_torch.engine import device_stream, pipeline, streaming
 from myyuv_tpu_torch.kernels import convert, probe
+from myyuv_tpu_torch.runtime.errors import BitstreamError
 
 H, W = 64, 128
 N_FRAMES = FLAG_CHUNK + 3  # past the JAX package's flag-stack arity
@@ -87,6 +90,72 @@ def test_compress_stream_bytes_match_frame_api_and_jax(setup, depth):
             for s, c in ((ws, wc), (js, jc)):
                 np.testing.assert_array_equal(gs, s)
                 np.testing.assert_array_equal(gc, c)
+
+
+def _bgrx_frames(rng, kind, h, w, n=3):
+    """n BGRX frames [h, w, 4]: random bytes, saturated colours (every
+    channel 0 or 255) or extreme ones (each channel in 0, 1, 254, 255),
+    whose chroma differences reach X1's 8-bit wrap."""
+    shape = (n, h, w, 4)
+    if kind == "random":
+        px = rng.integers(0, 256, shape)
+    elif kind == "saturated":
+        px = 255 * rng.integers(0, 2, shape)
+    else:
+        px = rng.choice([0, 1, 254, 255], shape)
+    return [torch.from_numpy(f) for f in px.astype(np.uint8)]
+
+
+@pytest.mark.parametrize("kind", ["random", "saturated", "extreme"])
+@pytest.mark.parametrize("depth", [1, 3])
+@pytest.mark.parametrize("h, w", [(32, 48), (64, 64)])
+def test_compress_stream_of_bgrx_matches_reference_and_frame_api(
+        rng, h, w, depth, kind):
+    """BGRX frames through ``compress_stream``: the streams, in order and
+    byte for byte, of the benchmark's plain reference of the capture path
+    and of X1 followed by ``compress_frame_to_streams``."""
+    dct, qt = pipeline.codec_params([50] * 3, "cpu")
+    frames = _bgrx_frames(rng, kind, h, w)
+    got = list(streaming.compress_stream(frames, qt, dct, depth=depth))
+    assert len(got) == len(frames)
+    for g, px in zip(got, frames):
+        planes = [p.numpy() for p in convert.bgrx_to_iyuv(px)]
+        for want in (capture_reference.frame_streams(px, [50] * 3),
+                     device_stream.compress_frame_to_streams(planes, qt,
+                                                             dct)):
+            assert len(g) == len(want) == 3
+            for (gs, gc), (ws, wc) in zip(g, want):
+                assert gs.dtype == gc.dtype == np.uint8
+                np.testing.assert_array_equal(gs, ws)
+                np.testing.assert_array_equal(gc, wc)
+
+
+def test_compress_stream_raises_on_a_chunk_over_255_bytes(rng,
+                                                          monkeypatch):
+    """A block whose chunk does not fit its 8-bit size (K1's err) raises
+    BitstreamError at its frame, on BGRX frames as on planes."""
+    lanes_of = device_stream.frame_lanes
+
+    def too_long(*a, **k):
+        lanes, sizes, err = lanes_of(*a, **k)
+        sizes, err = sizes.clone(), err.clone()
+        sizes[0], err[0] = 300, 1
+        return lanes, sizes, err
+    monkeypatch.setattr(device_stream, "frame_lanes", too_long)
+    dct, qt = pipeline.codec_params([50] * 3, "cpu")
+    px = _bgrx_frames(rng, "random", 32, 48, n=1)[0]
+    for frame in (px, convert.bgrx_to_iyuv(px)):
+        with pytest.raises(BitstreamError, match="8-bit size"):
+            list(streaming.compress_stream([frame], qt, dct))
+
+
+def test_compress_stream_refuses_a_bgrx_batch(rng):
+    """A BGRX frame is one [H, W, 4] picture: a batch of them is refused
+    (its streams would not split into one frame's planes)."""
+    dct, qt = pipeline.codec_params([50] * 3, "cpu")
+    batch = torch.stack(_bgrx_frames(rng, "random", 32, 48, n=2))
+    with pytest.raises(ValueError, match=r"\[H, W, 4\]"):
+        list(streaming.compress_stream([batch], qt, dct))
 
 
 def test_sustained_drivers_report_every_window(setup):

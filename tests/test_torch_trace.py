@@ -13,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from myyuv_tpu_torch.engine import device_stream, pipeline, sweep
+from myyuv_tpu_torch.engine import device_stream, pipeline, streaming, sweep
 from myyuv_tpu_torch.formats import yuv
+from myyuv_tpu_torch.kernels import convert
 from myyuv_tpu_torch.runtime import trace
 
 CPU = torch.device("cpu")
@@ -198,3 +199,55 @@ def test_start_clears_the_previous_run(rng):
         pass
     spans, counters = trace.stop()
     assert [s[:2] for s in spans] == [("only", 0)] and counters == {}
+
+
+def _bgrx(rng, n=3, h=32, w=48):
+    return [torch.from_numpy(rng.integers(0, 256, (h, w, 4), np.uint8))
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("frames", ["bgrx", "planes"])
+def test_compress_stream_records_ingest_and_its_two_waits(rng, frames):
+    """A frame of ``compress_stream``: ``stream.ingest_frame`` (BGRX only),
+    then at assembly ``wait.event``, ``wait.pull`` and ``stream.split``,
+    each at depth 0 below a caller that opened no span; no pinned bytes on
+    the CPU route; nothing recorded while the recorder is off."""
+    dct, qt = pipeline.codec_params([50] * 3, CPU)
+    px = _bgrx(rng)
+    stream = (px if frames == "bgrx"
+              else [convert.bgrx_to_iyuv(p) for p in px])
+    trace.start()
+    got = list(streaming.compress_stream(stream, qt, dct, depth=2))
+    spans, counters = trace.stop()
+    assert len(got) == 3
+    want = {("wait.event", 0): 3, ("wait.pull", 0): 3, ("stream.split", 0): 3}
+    if frames == "bgrx":
+        want[("stream.ingest_frame", 0)] = 3
+    assert collections.Counter(s[:2] for s in spans) == want
+    assert _waits(spans) == {"wait.event": 3, "wait.pull": 3}
+    assert "pinned_bytes.d2h" not in counters and counters == {}
+    # assembly: the event's wait, then the pull's, then the split
+    order = [n for n, _, _, _ in sorted(spans, key=lambda s: s[2])
+             if n != "stream.ingest_frame"]
+    assert order == ["wait.event", "wait.pull", "stream.split"] * 3
+
+    trace.start()
+    trace.stop()
+    list(streaming.compress_stream(stream, qt, dct))
+    assert trace.stop() == ([], {})
+
+
+@pytest.mark.parametrize("entry", ["ingest_frame", "ingest_stream"])
+def test_ingest_entries_record_the_ingest_span(rng, entry):
+    dct, qt = pipeline.codec_params([50] * 3, CPU)
+    px = _bgrx(rng, n=2)
+    trace.start()
+    if entry == "ingest_frame":
+        device_stream.ingest_frame(px[0], qt, dct)
+        n = 1
+    else:
+        streaming.ingest_stream(px, qt, dct)
+        n = 2
+    spans, counters = trace.stop()
+    assert [s[:2] for s in spans] == [("stream.ingest_frame", 0)] * n
+    assert counters == {}
