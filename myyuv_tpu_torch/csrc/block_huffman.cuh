@@ -15,6 +15,8 @@
 // MSB-first.
 #pragma once
 
+#include <type_traits>
+
 #include "codec_common.cuh"
 
 namespace myyuv {
@@ -24,18 +26,28 @@ namespace myyuv {
 // The stages follow the plain version (entropy/device.py::encode_lanes),
 // native's algorithm in data-parallel form. Lane `lane` of a group owns
 // message positions and symbol indices k * 8 + lane (k < 8) in registers
-// indexed only by constants, and code length lane + 1 in stage 4; whatever
-// is indexed by data lives in the group's EncodeScratch in shared memory.
+// indexed only by constants (the networks' keys R * lane .. R * lane + R -
+// 1), and code length lane + 1 in stage 4; whatever is indexed by data
+// lives in the group's EncodeScratch in shared memory.
 // All lanes of a warp run the same phases and meet at __syncwarp(); every
 // shuffle, ballot and reduction is called by the whole warp, in loops whose
 // bounds are warp-uniform.
 // 1. message: msg_len from ballots of the nonzero positions (all-zero: 1);
-// 2. symbols: round by round, a position looks its value up among the
-//    distinct values seen so far; __match_any_sync groups the round's equal
-//    values, whose lowest lane appends a new one and counts them; the
-//    distinct values' ascending order is then a rank;
-// 3. lengths: the stable weight order as a rank, then native's two-queue
-//    merge (a leaf wins a tie) and depth sweep on one lane of the group;
+// 2. symbols: a bitonic network (group_sort) sorts the keys value << 6 |
+//    position of the message; a slot whose value differs from the slot
+//    before is a symbol's first, its symbol index the count of firsts
+//    before it, its frequency the distance to the next first; each
+//    position's index goes back by the key's position bits;
+// 3. lengths: a second network sorts the keys freq << 6 | symbol index
+//    (native's stable sort of the ascending symbols by frequency), whose
+//    sorted slot is the leaf index; then native's two-queue merge (a leaf
+//    wins a tie) and depth sweep on one lane. Each network is as wide as
+//    the warp's widest block needs, the least power of two >= its longest
+//    message or its most symbols, and holds R = width / 8 keys a lane (one
+//    under 8): distances under R are exchanges in registers, the others
+//    shuffles. Their depth is fixed by that width (a 64-key sort is 21
+//    steps; a warp of one-symbol blocks sorts nothing), and no loop runs
+//    as long as the data says;
 // 4. canonical codes: a mask of the symbols of each length; a symbol's
 //    index within its length is a popcount, its code the length's first
 //    code (an exclusive scan of the Kraft terms) plus that index;
@@ -101,16 +113,15 @@ struct alignas(16) EncodeScratch {
       uint8_t tree_off[8];           // tree-section offset of length L + 1
       uint8_t first[8];              // first code of length L + 1
       union {
-        struct {                     // distinct values, order of appearance
-          int16_t val[64];
-          uint8_t cnt[64];           // their frequencies
-          uint8_t rank[64];          // their index in sym
-        } seen;
+        struct {                     // the front's scatters (under parent)
+          uint8_t sidx[64];          // symbol index of position i
+          uint8_t leaf[64];          // leaf index of symbol i
+        } front;                     // both at transposed(i)
         struct {                     // the Huffman tree
+          uint8_t parent[128];       // parent id of leaf i / node n + m
           uint8_t leafw[64];         // frequencies in stable weight order
           uint8_t intw[64];          // weight of internal node n + m
           uint8_t depth[64];         // depth of internal node n + m
-          uint8_t parent[128];       // parent id of leaf i / node n + m
         } tree;
       };
     } huff;
@@ -137,6 +148,189 @@ __device__ __forceinline__ int group_scan(int v, int lane) {
     if (lane >= o) v += u;
   }
   return v;
+}
+
+// A key above every key of the networks (a value key is at most 22 bits).
+constexpr uint32_t kSortSentinel = 0xFFFFFFFFu;
+
+// The least power of two >= n (1 for n <= 1).
+__device__ __forceinline__ int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 1 << (32 - __clz(n - 1));
+}
+
+// Where the front stores the entry of position or symbol i, so that lane
+// `lane` reads its own eight, i = k * 8 + lane, as one 8-byte load.
+__device__ __forceinline__ int transposed(int i) {
+  return (i & 7) * 8 + (i >> 3);
+}
+
+// Byte k (a constant) of eight packed little-endian in v.
+__device__ __forceinline__ int byte_of(uint2 v, int k) {
+  return ((k < 4 ? v.x : v.y) >> (8 * (k & 3))) & 0xFF;
+}
+
+// The R elements p[R * lane .. R * lane + R - 1] in registers, one load of
+// R * sizeof(T) (1 .. 16) bytes, aligned.
+template <int R, typename T>
+__device__ __forceinline__ void load_run(const T* p, int lane, T (&v)[R]) {
+  constexpr int kBytes = R * int(sizeof(T));
+  using W = typename std::conditional<
+      kBytes == 16, uint4, typename std::conditional<
+      kBytes == 8, uint2, typename std::conditional<
+      kBytes == 4, uint32_t, typename std::conditional<
+      kBytes == 2, uint16_t, uint8_t>::type>::type>::type>::type;
+  static_assert(sizeof(W) == kBytes, "a run is 1, 2, 4, 8 or 16 bytes");
+  const W w = reinterpret_cast<const W*>(p)[lane];
+  memcpy(v, &w, kBytes);
+}
+
+// The group's 8 * R bits in slot order: bit R * lane + r is bit r of the
+// lane's `bits`.
+template <int R>
+__device__ __forceinline__ unsigned long long group_bits(unsigned bits,
+                                                         int lane) {
+  if constexpr (R == 1) {
+    return group_ballot(bits & 1u);
+  } else if constexpr (R == 8) {
+    uint32_t half = bits << (8 * (lane & 3));
+    half |= __shfl_xor_sync(kWarpMask, half, 1);
+    half |= __shfl_xor_sync(kWarpMask, half, 2);
+    const uint32_t other = __shfl_xor_sync(kWarpMask, half, 4);
+    return lane < 4 ? (unsigned long long)other << 32 | half
+                    : (unsigned long long)half << 32 | other;
+  } else {
+    uint32_t word = bits << (R * lane);
+    word |= __shfl_xor_sync(kWarpMask, word, 1);
+    word |= __shfl_xor_sync(kWarpMask, word, 2);
+    return word | __shfl_xor_sync(kWarpMask, word, 4);
+  }
+}
+
+// Compare-exchange in registers: a takes the smaller key.
+__device__ __forceinline__ void sort_pair(uint32_t& a, uint32_t& b) {
+  const uint32_t lo = min(a, b);
+  b = max(a, b);
+  a = lo;
+}
+
+// Compare-exchange of each own key with the key of lane lane ^ m held in
+// register `r ^ kMirror` of that lane: the lower lane of the pair takes the
+// smaller key.
+template <int R, int kMirror>
+__device__ __forceinline__ void sort_lanes(uint32_t (&x)[R], int m,
+                                           bool upper) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if ((r ^ kMirror) < r) continue;  // the pair (r, r ^ kMirror) at once
+    const uint32_t a = __shfl_xor_sync(kWarpMask, x[r ^ kMirror], m);
+    const uint32_t b = kMirror ? __shfl_xor_sync(kWarpMask, x[r], m) : 0u;
+    x[r] = upper ? max(x[r], a) : min(x[r], a);
+    if (kMirror) x[r ^ kMirror] = upper ? max(x[r ^ kMirror], b)
+                                        : min(x[r ^ kMirror], b);
+  }
+}
+
+// Bitonic sort of the group's 8 * R keys, ascending over slots R * lane + r
+// (key x[r] of lane `lane`), in blocks of `width` <= 8 * R slots (a power of
+// two, warp-uniform): the merges of sizes 2 .. width, each a comparison of
+// every slot with its mirror in the merged block, then half-cleaners; all
+// comparators ascend. Distances under R are exchanges in registers, the
+// others shuffles. Slots past what a block holds carry kSortSentinel, so a
+// block's keys end sorted in slots 0 .. width - 1.
+template <int R>
+__device__ __forceinline__ void group_sort(uint32_t (&x)[R], int lane,
+                                           int width) {
+#pragma unroll
+  for (int k = 2; k <= 8 * R; k <<= 1) {
+    if (k > width) break;
+    if (k <= R) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (r < (r ^ (k - 1))) sort_pair(x[r], x[r ^ (k - 1)]);
+    } else {
+      sort_lanes<R, R - 1>(x, k / R - 1, lane & (k / (2 * R)));
+    }
+#pragma unroll
+    for (int j = k / 4; j >= 1; j /= 2) {
+      if (j >= R) {
+        sort_lanes<R, 0>(x, j / R, lane & (j / R));
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (!(r & j)) sort_pair(x[r], x[r | j]);
+      }
+    }
+  }
+}
+
+// Stage 2 with R message positions a lane, for a warp whose longest message
+// fits `width` <= 8 * R: the keys value << 6 | position sorted (positions
+// past msg_len are sentinels); a symbol's first slot is a real one whose
+// value differs from the slot's before. Writes sym and freq (ascending
+// symbols) and each position's symbol index to front.sidx; returns n_sym.
+template <int R>
+__device__ __forceinline__ int sort_symbols(EncodeScratch& s, int lane,
+                                            int msg_len, int width) {
+  const int first = R * lane;
+  int16_t m[R];
+  load_run<R>(s.msg, lane, m);
+  uint32_t x[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    x[r] = first + r < msg_len ? uint32_t(m[r] + 32768) << 6 | (first + r)
+                               : kSortSentinel;
+  group_sort<R>(x, lane, width);
+  const uint32_t before = __shfl_up_sync(kWarpMask, x[R - 1], 1, 8);
+  unsigned firsts = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const uint32_t prev = r ? x[r - 1] : before;
+    if (first + r < msg_len && (first + r == 0 || (x[r] ^ prev) >> 6))
+      firsts |= 1u << r;
+  }
+  const unsigned long long heads = group_bits<R>(firsts, lane);
+  // symbol index: the firsts up to the slot, less one; frequency: the
+  // distance from a first to the next, in the lane or after it (or msg_len)
+  const int below = __popcll(heads & ((1ull << first) - 1));
+  const unsigned long long after = heads >> (first + R - 1) >> 1;
+  const int next_lane = after ? first + R - 1 + __ffsll((long long)after)
+                              : msg_len;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int slot = first + r;
+    const int si = below + __popc(firsts & ((2u << r) - 1)) - 1;
+    const unsigned later = firsts >> r >> 1;
+    if (firsts >> r & 1) {
+      s.huff.sym[si] = int16_t(int(x[r] >> 6) - 32768);
+      s.huff.freq[si] = (later ? slot + __ffs(later) : next_lane) - slot;
+    }
+    if (slot < msg_len) s.huff.front.sidx[transposed(x[r] & 63)] = si;
+  }
+  return __popcll(heads);
+}
+
+// Stage 3's leaf order with R symbols a lane, for a warp whose most symbols
+// fit `width` <= 8 * R: the keys freq << 6 | symbol index sorted (native's
+// stable sort of the ascending symbols by frequency); a key's slot is its
+// symbol's leaf index. Writes tree.leafw and front.leaf.
+template <int R>
+__device__ __forceinline__ void sort_leaves(EncodeScratch& s, int lane,
+                                            int n_sym, int width) {
+  const int first = R * lane;
+  uint8_t f[R];
+  load_run<R>(s.huff.freq, lane, f);
+  uint32_t y[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    y[r] = first + r < n_sym ? uint32_t(f[r]) << 6 | (first + r)
+                             : kSortSentinel;
+  group_sort<R>(y, lane, width);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (first + r >= n_sym) continue;
+    s.huff.tree.leafw[first + r] = y[r] >> 6;
+    s.huff.front.leaf[transposed(y[r] & 63)] = first + r;
+  }
 }
 
 // OR the nbits-bit field v in at stream bit bitpos; a field that crosses a
@@ -187,87 +381,46 @@ __device__ __forceinline__ void encode_group_to_lane(
   for (int i = lane; i < kLaneWords / 4; i += 8)
     reinterpret_cast<uint4*>(s.words)[i] = make_uint4(0, 0, 0, 0);
   s.len_mask[lane] = 0;
-  for (int i = lane; i < 64 / 4; i += 8)
-    reinterpret_cast<uint32_t*>(s.huff.seen.cnt)[i] = 0;
   if constexpr (kSkip == EncodePhase::kGroups)  // the codes' stand-in
     for (int i = lane; i < 64 / 4; i += 8)
       reinterpret_cast<uint32_t*>(s.huff.code)[i] = 0;
   __syncwarp();
 
   // 1. message, trailing zeros trimmed
-  int v[8];
   unsigned long long nz = 0;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    v[k] = s.msg[k * 8 + lane];
-    nz |= (unsigned long long)group_ballot(v[k] != 0) << (k * 8);
-  }
+  for (int k = 0; k < 8; ++k)
+    nz |= (unsigned long long)group_ballot(s.msg[k * 8 + lane] != 0) << (k * 8);
   const int msg_len = nz ? 64 - __clzll(nz) : 1;
-  const int warp_rounds = (__reduce_max_sync(kWarpMask, msg_len) + 7) / 8;
+  const int longest = __reduce_max_sync(kWarpMask, msg_len);
+  const int warp_rounds = (longest + 7) / 8;
 
-  // 2. distinct values in order of first appearance, their counts and
-  //    each own position's entry among them
-  const unsigned me = threadIdx.x & 31, gw = me / 8;  // lane, group in warp
-  int entry[8];
-  int n_sym = 0;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    entry[k] = 0;
-    if (k >= warp_rounds) break;
-    const bool valid = k * 8 + lane < msg_len;
-    int e = -1;
-    if (valid)
-      for (int t = 0; t < n_sym && e < 0; ++t)
-        if (s.huff.seen.val[t] == v[k]) e = t;
-    // the round's equal values in the group; the lowest lane leads
-    const unsigned peers = __match_any_sync(
-        kWarpMask, valid ? (gw << 16) | (v[k] & 0xFFFF) : (1u << 31) | me);
-    const int leader = __ffs(peers) - 1;
-    const bool lead = valid && leader == int(me);
-    const unsigned fresh = group_ballot(lead && e < 0);
-    if (lead && e < 0) {
-      e = n_sym + __popc(fresh & ((1u << lane) - 1));
-      s.huff.seen.val[e] = v[k];
-    }
-    e = __shfl_sync(kWarpMask, e, leader);
-    if (lead) s.huff.seen.cnt[e] += __popc(peers);
-    entry[k] = e;
-    n_sym += __popc(fresh);
-    __syncwarp();
-  }
-  // distinct symbols ascending, and each own position's symbol index
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int e = k * 8 + lane;
-    if (e >= n_sym) break;
-    const int val = s.huff.seen.val[e];
-    int r = 0;
-    for (int t = 0; t < n_sym; ++t) r += s.huff.seen.val[t] < val;
-    s.huff.sym[r] = val;
-    s.huff.freq[r] = s.huff.seen.cnt[e];
-    s.huff.seen.rank[e] = r;
+  // 2. symbols, by a network as wide as the warp's longest message
+  const int value_width = pow2_at_least(longest);
+  int n_sym;
+  switch (value_width) {
+    case 64: n_sym = sort_symbols<8>(s, lane, msg_len, 64); break;
+    case 32: n_sym = sort_symbols<4>(s, lane, msg_len, 32); break;
+    case 16: n_sym = sort_symbols<2>(s, lane, msg_len, 16); break;
+    default: n_sym = sort_symbols<1>(s, lane, msg_len, value_width);
   }
   __syncwarp();
-  int sidx[8];
-  if constexpr (kSkip != EncodePhase::kLut) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      sidx[k] = k * 8 + lane < msg_len ? s.huff.seen.rank[entry[k]] : 0;
-  }
-  __syncwarp();  // the tree reuses `seen`
 
-  // 3. code lengths: leaf index = stable rank by weight
-  int wr[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    wr[k] = 0;
-    const int sk = k * 8 + lane;
-    if (sk >= n_sym) continue;
-    const int key = s.huff.freq[sk] * 64 + sk;
-    for (int t = 0; t < n_sym; ++t) wr[k] += s.huff.freq[t] * 64 + t < key;
-    s.huff.tree.leafw[wr[k]] = s.huff.freq[sk];
+  // 3. code lengths: the leaf order, by a network as wide as the warp's
+  //    most symbols
+  const int leaf_width = pow2_at_least(__reduce_max_sync(kWarpMask, n_sym));
+  switch (leaf_width) {
+    case 64: sort_leaves<8>(s, lane, n_sym, 64); break;
+    case 32: sort_leaves<4>(s, lane, n_sym, 32); break;
+    case 16: sort_leaves<2>(s, lane, n_sym, 16); break;
+    default: sort_leaves<1>(s, lane, n_sym, leaf_width);
   }
   __syncwarp();
+  // byte k: the symbol index of own position k * 8 + lane (< msg_len) and
+  // the leaf index of own symbol k * 8 + lane (< n_sym)
+  const uint2 sidx = reinterpret_cast<const uint2*>(s.huff.front.sidx)[lane];
+  const uint2 wr = reinterpret_cast<const uint2*>(s.huff.front.leaf)[lane];
+  __syncwarp();  // the tree's parent overwrites the front's scatters
   if constexpr (kSkip == EncodePhase::kFrontOnly) {
     if (!active) return;
     uint4* dst = reinterpret_cast<uint4*>(lanes + b * 4 * kLaneWords);
@@ -292,7 +445,8 @@ __device__ __forceinline__ void encode_group_to_lane(
       len[k] = n_sym <= 2 ? 1 : 32 - __clz(n_sym - 1);
     else
       len[k] = n_sym == 1 ? 1
-                          : s.huff.tree.depth[s.huff.tree.parent[wr[k]] - n_sym] + 1;
+                          : s.huff.tree.depth[s.huff.tree.parent[byte_of(wr, k)]
+                                              - n_sym] + 1;
     s.huff.len[sk] = len[k];
     atomicOr(&s.len_mask[len[k] - 1], 1ull << sk);
   }
@@ -339,7 +493,7 @@ __device__ __forceinline__ void encode_group_to_lane(
     if constexpr (kSkip == EncodePhase::kLut)
       plen = valid ? 1 : 0;
     else
-      plen = valid ? s.huff.len[sidx[k]] : 0;
+      plen = valid ? s.huff.len[byte_of(sidx, k)] : 0;
     const int end = group_scan(plen, lane);
     if constexpr (kSkip == EncodePhase::kLut) {
       if (valid)
@@ -348,7 +502,8 @@ __device__ __forceinline__ void encode_group_to_lane(
     } else if constexpr (kSkip != EncodePhase::kSerial) {
       if (valid)
         or_bits(s.words, pbit + enc_bits + end - plen,
-                __brev(uint32_t(s.huff.code[sidx[k]])) >> (32 - plen), plen);
+                __brev(uint32_t(s.huff.code[byte_of(sidx, k)])) >> (32 - plen),
+                plen);
     }
     enc_bits += __shfl_sync(kWarpMask, end, 7, 8);
   }

@@ -12,14 +12,16 @@
 // What bounds it on the H100: latency of the per-block work, not HBM. A
 // 4032x3008 frame is 284,256 blocks: ~18 MB of planes in, ~2.5 MB of chunk
 // bytes (in 73 MB of 256-byte lanes) out, which the card moves in ~30 us;
-// the work is two 8-term f32 chains per coefficient, then O(msg_len *
-// n_sym) lookups, O(n_sym^2) rank counts, a merge of <= 63 sequential steps
-// and bit packing, whose cost depends on the block's content.
+// the work is two 8-term f32 chains per coefficient, then two sorting
+// networks (the message's values, the symbols' weights) whose depth is set
+// by the widest block of the warp (21 steps at 64 keys, none for a warp of
+// one-symbol blocks), a merge of <= 63 sequential steps and bit packing.
 // What the design does about it: a group of 8 lanes per block
 // (block_huffman.cuh) spreads the transform (lane r computes row r of C . B
-// and of the result in registers), the ranks, the code tables and the bit
-// packing over its lanes; only the merge runs on one lane, and a warp keeps
-// four merges side by side. Whatever is indexed by
+// and of the result in registers), the networks (keys in registers, the
+// near steps within a lane, the far ones by shuffles), the code tables and
+// the bit packing over its lanes; only the merge runs on one lane, and a
+// warp keeps four merges side by side. Whatever is indexed by
 // data lives in the group's shared-memory scratch, so nothing goes to local
 // memory (ptxas: 0-byte stack frame); the lane leaves as 16-byte stores.
 //

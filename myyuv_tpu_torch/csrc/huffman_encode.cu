@@ -12,13 +12,15 @@
 // What bounds it on the H100: latency of the per-block work, not HBM.
 // Memory traffic by count is 36.4 MB of coefficients in and ~2.5 MB of
 // chunk bytes (in 72.8 MB of lanes) plus 2.3 MB of sizes and flags out for
-// a 4032x3008 frame, ~33 us at 3.35 TB/s for the lanes; the work is
-// O(msg_len * n_sym) lookups, O(n_sym^2) rank counts, a merge of <= 63
-// sequential steps and bit packing, all of which depend on the content.
+// a 4032x3008 frame, ~33 us at 3.35 TB/s for the lanes; the work is two
+// sorting networks as deep as the warp's widest block needs (21 steps at
+// 64 keys), a merge of <= 63 sequential steps and bit packing, all of which
+// depend on the content.
 // What the design does about it: the group reads its row as eight 16-byte
 // loads, stages the zigzag message in shared memory and runs
-// block_huffman.cuh's lane-group encoder, which K1 runs too: ranks, code
-// tables and bit packing spread over the lanes, only the merge on one lane,
+// block_huffman.cuh's lane-group encoder, which K1 runs too: the networks
+// in registers and shuffles, code tables and bit packing spread over the
+// lanes, only the merge on one lane,
 // nothing in local memory (ptxas: 0-byte stack frame), and the lane leaves
 // as 16-byte stores. Distinct symbols are the full int16 values, each
 // serialized as its low 11 bits, as native does; no int16 input makes a

@@ -49,25 +49,29 @@ def card() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def device_from_args(doc: str, argv: Optional[Sequence[str]]
-                     ) -> torch.device:
-    """The ``--device cuda|cpu`` argument (default cuda) of a tool whose
-    module docstring is ``doc``."""
+def tool_args(doc: str, argv: Optional[Sequence[str]], options: dict):
+    """(device, values) of the arguments of a tool whose module docstring
+    is ``doc``: ``--device cuda|cpu`` (default cuda), and ``--<name>`` for
+    each name -> default of ``options``, of the default's type."""
     ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    return resolve_device(ap.parse_args(argv).device)
+    for name, default in options.items():
+        ap.add_argument(f"--{name}", type=type(default), default=default)
+    values = vars(ap.parse_args(argv))
+    return resolve_device(values.pop("device")), values
 
 
 def run_tool(run: Callable, times: Callable, doc: str,
-             argv: Optional[Sequence[str]]) -> dict:
+             argv: Optional[Sequence[str]], **options) -> dict:
     """A tool's ``main``: ``run(device)`` on the ``--device`` of ``argv``
     and, on a card, the card's name and power limit and ``times(device)``;
-    prints the result as one JSON line and returns it."""
-    dev = device_from_args(doc, argv)
-    out = run(dev)
+    the tool's further ``options`` (name=default, ``tool_args``) go to both
+    as keywords. Prints the result as one JSON line and returns it."""
+    dev, values = tool_args(doc, argv, options)
+    out = run(dev, **values)
     if dev.type == "cuda":
         out["card"] = card()
-        out["times"] = times(dev)
+        out["times"] = times(dev, **values)
     print(json.dumps(out))
     return out
 

@@ -3,28 +3,31 @@
 Run from the repository root on a machine with a CUDA card::
 
     python3 -m myyuv_tpu_torch.tools.exp_encphase [--device cuda|cpu]
+        [--quality Q]
 
-K1's encoder is timed stage by stage by ablation, as the JAX tool does:
-K1's measurement instances (``csrc/dct_encode_phases.cu`` through
+K1's encoder is timed stage by stage by ablation, as the JAX tool does: K1's
+measurement instances (``csrc/dct_encode_phases.cu`` through
 ``encode.dct_encode_phase``) each leave one stage of the encoder out and
-keep every loop bound and tensor shape, so K1's time less an instance's
-time is that stage's time. On ``exp_r3stage.frames``' two 4032x3008 q50
-frames (``cli``, smooth, and ``noise``) it times, with ``probe.cuda_ms``
-on inputs in device memory (``common.cold``): ``full`` (K1), each
-instance, and ``dct`` (K3 alone); and prints, in ms, what the JAX tool
-prints: each stage's delta, full - instance; ``front+DCT``, the
-``frontonly`` instance's own time; ``dct alone`` and ``front`` =
-frontonly - dct; and the residual, full - front+DCT - the deltas (what no
-instance leaves out: the per-length table, the header, the zeroing and
-the lane's store past the zero lane that ``frontonly`` stores). K3 writes
-its coefficients to device memory, which K1 keeps in shared memory, so
-``front`` is low by about that write.
+keep every loop bound and tensor shape, so K1's time less an instance's time
+is that stage's time. On ``exp_r3stage.frames``' two 4032x3008 frames
+(``cli``, smooth, and ``noise``) at quality Q (default 50) it times, with
+``probe.cuda_ms`` on inputs in device memory (``common.cold``): ``full``
+(K1), each instance, and ``dct`` (K3 alone); and prints, in ms, what the JAX
+tool prints: each stage's delta, full - instance; ``front+DCT``, the
+``frontonly`` instance's own time; ``dct alone`` and ``front`` = frontonly -
+dct; and the residual, full - front+DCT - the deltas (what no instance
+leaves out: the per-length table, the header, the zeroing and the lane's
+store past the zero lane that ``frontonly`` stores). K3 writes its
+coefficients to device memory, which K1 keeps in shared memory, so ``front``
+is low by about that write.
 
 The JAX tool's variants and the port's stages (``csrc/block_huffman.cuh``,
 ``EncodePhase``, names each stage and the stand-in it leaves in its place):
 
 * ``frontonly`` (front: value sort, run scans, leaf-key sort): stages 1-2
-  and stage 3's weight ranks, two O(n_sym^2) rank passes where JAX sorts;
+  and stage 3's weight ranks, the port's two sorting networks (the
+  message's value keys, then the symbols' weight keys) and the scans
+  between them, as JAX sorts;
 * ``merge``: ``huffman_tree``, the two-queue merge and the depth sweep;
 * ``groups`` (the per-length code and group table): stage 5's first loop,
   the code of each symbol and the tree section, whose bits it writes
@@ -37,6 +40,12 @@ The JAX tool's variants and the port's stages (``csrc/block_huffman.cuh``,
 * ``cansort`` (the canonical bitonic sort): none. The port takes the
   canonical order from popcount ranks of per-length masks and runs no
   sort; the tool reports it as ``CANSORT``.
+
+``front_widths``: for each frame, the share of K1's warps (4 blocks each)
+whose front runs each network width, the least power of two >= the warp's
+longest message (``value``) and >= its most symbols (``weight``), from
+K3's coefficients on the host side of the kernel: the hot kernel counts
+nothing.
 
 Before timing, every instance is held to its plain version on both frames
 (``encode.dct_encode_phase_plain``), and each output to what its stand-in
@@ -59,6 +68,9 @@ from ..kernels import probe, transform
 from . import common
 from .exp_r3stage import SHAPE, frames
 
+# the networks' widths, and the blocks of a warp of K1 (8 lanes a block)
+WIDTHS = (1, 2, 4, 8, 16, 32, 64)
+WARP_BLOCKS = 4
 CANSORT = ("n/a: the port has no canonical sort; it takes the canonical "
            "order from popcount ranks of per-length masks")
 # f32 operations a block of K1's DCT: two 8-term chains and the quantize
@@ -77,6 +89,24 @@ def message_stats(coeffs: torch.Tensor):
         dim=1).values
     runs = (s[:, 1:] != s[:, :-1]) & (s[:, 1:] < _PAST_INT16)
     return mlen.to(torch.int32), 1 + runs.sum(dim=1, dtype=torch.int32)
+
+
+def front_widths(coeffs: torch.Tensor) -> dict:
+    """{"value": {width: share}, "weight": {width: share}} of K1's warps on
+    the coefficient rows ``coeffs`` (see the module docstring); a warp's
+    groups past the last block code a one-symbol message."""
+    mlen, n_sym = message_stats(coeffs)
+    pad = -mlen.numel() % WARP_BLOCKS
+    out = {}
+    for name, per_block in (("value", mlen), ("weight", n_sym)):
+        most = torch.nn.functional.pad(per_block, (0, pad), value=1).view(
+            -1, WARP_BLOCKS).amax(dim=1)
+        width = torch.full_like(most, WIDTHS[-1])
+        for k in reversed(WIDTHS):
+            width = torch.where(most <= k, k, width)
+        out[name] = {str(k): float((width == k).sum()) / width.numel()
+                     for k in WIDTHS}
+    return out
 
 
 def _decoded(lanes: torch.Tensor, sizes: torch.Tensor):
@@ -120,13 +150,14 @@ def stand_in_holds(variant: str, got, full, coeffs: torch.Tensor) -> bool:
             and torch.equal(lanes, torch.where(in_tree, full[0], 0)))
 
 
-def run(device="cuda", shape=SHAPE) -> dict:
-    """Every instance on both frames on ``device``: against its plain
-    version (on a card) and its stand-in."""
+def run(device="cuda", shape=SHAPE, quality=50) -> dict:
+    """Every instance on both frames at ``quality`` on ``device``: against
+    its plain version (on a card) and its stand-in; and the frames'
+    ``front_widths``."""
     dev = torch.device(device)
-    dct, qt = codec_params([50] * 3, dev)
-    out = {"tool": "exp_encphase", "shape": list(shape), "quality": 50,
-           "cansort": CANSORT}
+    dct, qt = codec_params([quality] * 3, dev)
+    out = {"tool": "exp_encphase", "shape": list(shape), "quality": quality,
+           "cansort": CANSORT, "front_widths": {}}
     errs = []
     for name, planes in frames(dev, shape).items():
         full = encode.dct_encode_blocks(*planes, qt, dct)
@@ -142,6 +173,7 @@ def run(device="cuda", shape=SHAPE) -> dict:
                         "stand_in": stand_in_holds(var, got, full, coeffs)}
             errs.append(common.max_abs_err(zip(got, want)))
         out[name] = res
+        out["front_widths"][name] = front_widths(coeffs)
     out["max_abs_err"] = max(errs)
     return out
 
@@ -175,21 +207,23 @@ def split(planes, qt: torch.Tensor, dct: torch.Tensor) -> dict:
     return t
 
 
-def times(device="cuda") -> dict:
-    """``split`` of both frames on the card."""
+def times(device="cuda", quality=50) -> dict:
+    """``split`` of both frames at ``quality`` on the card."""
     dev = torch.device(device)
-    dct, qt = codec_params([50] * 3, dev)
+    dct, qt = codec_params([quality] * 3, dev)
     return {name: split(planes, qt, dct)
             for name, planes in frames(dev).items()}
 
 
-def report(card: str, t: dict) -> list:
-    """The JAX tool's lines (:129-142) for ``times``' result."""
+def report(card: str, t: dict, quality=50) -> list:
+    """The JAX tool's lines (:129-142) for ``times``' result at
+    ``quality``."""
     lines = []
     for frame, s in t.items():
         lines.append(f"[encphase] {card} | {frame} frame {SHAPE[1]}x"
-                     f"{SHAPE[0]} q50, probe.cuda_ms on inputs in device "
-                     f"memory: full (K1) {s['full']:.4f} ms; " + ", ".join(
+                     f"{SHAPE[0]} q{quality}, probe.cuda_ms on inputs in "
+                     f"device memory: full (K1) {s['full']:.4f} ms; "
+                     + ", ".join(
                          f"{var} {v['ms']:.4f}"
                          for var, v in s["variants"].items()))
         lines.append("  phase deltas vs full: " + ", ".join(
@@ -205,9 +239,9 @@ def report(card: str, t: dict) -> list:
 
 
 def main(argv=None) -> int:
-    out = common.run_tool(run, times, __doc__, argv)
+    out = common.run_tool(run, times, __doc__, argv, quality=50)
     if "times" in out:
-        print("\n".join(report(out["card"], out["times"])))
+        print("\n".join(report(out["card"], out["times"], out["quality"])))
     return 0 if all(r["exact"] and r["stand_in"]
                     for frame in ("cli", "noise")
                     for r in out[frame].values()) else 1

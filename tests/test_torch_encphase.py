@@ -18,7 +18,9 @@ encode_lanes``, ``skip``), and the encoder tools ``exp_encphase`` and
 * every instance: deterministic, with K1's output shapes and dtypes, and
   its output what its stand-in makes of K1's
   (``exp_encphase.stand_in_holds``).
-* the tools' checks on the CPU; unknown variants and devices raise.
+* the tools' checks on the CPU, ``exp_encphase``'s ``--quality`` and its
+  ``front_widths`` (a warp's network widths from its widest block); unknown
+  variants and devices raise.
 
 Tolerance: exact equality.
 """
@@ -39,7 +41,9 @@ from myyuv_tpu_torch.engine import pipeline
 from myyuv_tpu_torch.entropy import device as edev
 from myyuv_tpu_torch.entropy import encode
 from myyuv_tpu_torch.kernels import probe
-from myyuv_tpu_torch.tools import exp_encphase, exp_encsplit
+from myyuv_tpu_torch.tools import common, exp_encphase, exp_encsplit
+
+import front_cases
 
 H, W = 32, 64
 TILE = 8
@@ -193,6 +197,40 @@ def test_tools_run_on_the_cpu():
     out = exp_encsplit.run("cpu", (H, W))
     assert out["exact"] and out["flat_one_symbol"]
     assert out["max_abs_err"] == 0
+
+
+def test_front_widths_take_each_warps_widest_block():
+    """Two warps each of messages of 1 and 9 positions, then of the mixed
+    warp (1, 64, 9, 33) and of 64 equal values; a ninth block alone in its
+    warp, whose other groups code a one-symbol message."""
+    rows = np.concatenate([
+        front_cases.front_blocks(np.random.default_rng(20), case)
+        for case in ("msg_len_1", "msg_len_9", "mixed_warp", "all_equal")])
+    coeffs = torch.from_numpy(rows)
+    widths = exp_encphase.front_widths(coeffs)
+    assert widths["value"] == {"1": 0.25, "2": 0.0, "4": 0.0, "8": 0.0,
+                               "16": 0.25, "32": 0.0, "64": 0.5}
+    _, n_sym = exp_encphase.message_stats(coeffs)
+    most = n_sym.view(-1, 4).amax(dim=1).tolist()
+    want = [next(k for k in exp_encphase.WIDTHS if k >= m) for m in most]
+    assert widths["weight"] == {str(k): want.count(k) / len(want)
+                                for k in exp_encphase.WIDTHS}
+    part = exp_encphase.front_widths(coeffs[:9])
+    assert part["value"] == {"1": 2 / 3, "2": 0.0, "4": 0.0, "8": 0.0,
+                             "16": 1 / 3, "32": 0.0, "64": 0.0}
+
+
+def test_encphase_takes_its_quality():
+    dev, values = common.tool_args(exp_encphase.__doc__,
+                                   ["--device", "cpu", "--quality", "90"],
+                                   {"quality": 50})
+    assert dev.type == "cpu" and values == {"quality": 90}
+    out = exp_encphase.run("cpu", (H, W), quality=90)
+    assert out["quality"] == 90 and out["max_abs_err"] == 0
+    for frame in ("cli", "noise"):
+        assert all(r["exact"] and r["stand_in"] for r in out[frame].values())
+        for shares in out["front_widths"][frame].values():
+            assert abs(sum(shares.values()) - 1) < 1e-9
 
 
 @pytest.mark.parametrize("variant", ["", "full", "cansort", "dct", "Merge"])

@@ -23,6 +23,9 @@ from myyuv_tpu_torch.engine import device_stream, pipeline
 from myyuv_tpu_torch.entropy import device as edev
 from myyuv_tpu_torch.entropy import encode
 from myyuv_tpu_torch.kernels import probe
+from myyuv_tpu_torch.tools import exp_encphase
+
+import front_cases
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -81,6 +84,34 @@ def test_plain_encode_matches_native_bytes(rng):
     want_sizes, want = entropy.encode_blocks(coeffs, backend="native")
     np.testing.assert_array_equal(sizes, want_sizes.astype(np.int32))
     np.testing.assert_array_equal(content, want)
+
+
+@pytest.mark.parametrize("case", front_cases.FRONT_CASES)
+def test_plain_encode_matches_native_on_front_cases(case):
+    """The front's edge cases (``tests/front_cases.py``), which the card's
+    tests run through K5, K1 and its ``frontonly`` instance: each set
+    reaches the message lengths it is named for, and its chunks and sizes
+    are native's."""
+    coeffs = front_cases.front_blocks(np.random.default_rng(20), case)
+    mlen, _ = exp_encphase.message_stats(torch.from_numpy(coeffs))
+    assert mlen.tolist() == front_cases.message_lengths(case)
+    sizes, content = _encode(coeffs)
+    want_sizes, want = entropy.encode_blocks(coeffs, backend="native")
+    np.testing.assert_array_equal(sizes, want_sizes.astype(np.int32))
+    np.testing.assert_array_equal(content, want)
+
+
+@pytest.mark.parametrize("case", front_cases.FRONT_CASES)
+def test_plain_front_counts_reference_symbols_on_front_cases(case):
+    """The plain ``frontonly`` stand-in on the front's edge cases: size
+    n_sym, the distinct values of ``reference.py``'s message, err 0 and a
+    zero lane."""
+    coeffs = front_cases.front_blocks(np.random.default_rng(20), case)
+    lanes, sizes, err = edev.encode_lanes(torch.from_numpy(coeffs),
+                                          skip="frontonly")
+    assert sizes.tolist() == [len(np.unique(reference._message(c)))
+                              for c in coeffs]
+    assert not err.any() and not lanes.any()
 
 
 def test_plain_decode_matches_host(rng):

@@ -31,6 +31,8 @@ from myyuv_tpu_torch.entropy import device as edev
 from myyuv_tpu_torch.kernels import build, convert, probe, transform
 from myyuv_tpu_torch.kernels import device as kdev
 
+import front_cases
+
 pytestmark = pytest.mark.gpu
 
 
@@ -214,6 +216,54 @@ def test_encoder_families_match_plain(rng, cuda, family):
     dct, _ = pipeline.codec_params([50] * 3, cuda)
     got = encode.dct_encode_blocks(*planes, qt, dct)
     for g, p in zip(got, encode.dct_encode_blocks_plain(*planes, qt, dct)):
+        assert g.is_cuda and torch.equal(g, p)
+
+
+# K1's frame for each front case (tests/front_cases.py): plane content
+# ("mixed": noise, every other block of a row flat), and the quantizer: q at
+# the first n zigzag positions and 4096, which zeroes any coefficient,
+# after them. Messages then end at n where the content has detail; the
+# int16 ends lie beyond a DCT's range, so that case takes the widest
+# symbols q = 1 gives.
+_K1_FRONT = {
+    **{f"msg_len_{n}": ("noise", 1, n) for n in front_cases.MSG_LENS},
+    "distinct_64": ("noise", 1, 64), "all_equal": ("flat", 1, 64),
+    "tied_frequencies": ("noise", 64, 64),
+    "int16_ends_padded": ("noise", 1, 9), "mixed_warp": ("mixed", 1, 33),
+}
+
+
+def _front_plane(rng, kind, shape):
+    p = probe.content_kind(rng, "flat" if kind == "flat" else "noise", shape)
+    if kind == "mixed":
+        p[:, np.arange(shape[1]) // 8 % 2 == 0] = 128
+    return p
+
+
+@pytest.mark.parametrize("case", front_cases.FRONT_CASES)
+def test_encoder_front_cases_match_plain(cuda, case):
+    """K5 on each of the front's block sets, and K1 and its ``frontonly``
+    instance on a frame whose quantizer reaches the set's message lengths:
+    lanes, sizes and err identical to the plain versions."""
+    rng = np.random.default_rng(20)
+    coeffs = torch.from_numpy(front_cases.front_blocks(rng, case)).to(cuda)
+    got = encode.encode_blocks(coeffs)
+    for g, p in zip(got, edev.encode_lanes(coeffs)):
+        assert g.is_cuda and torch.equal(g, p)
+    kind, q, kept = _K1_FRONT[case]
+    h, w = 48, 80
+    planes = [torch.from_numpy(_front_plane(rng, kind, s)).to(cuda)
+              for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+    qt = torch.full((3, 64), 4096.0)
+    qt[:, torch.from_numpy(edev.ZIGZAG[:kept].astype(np.int64))] = float(q)
+    qt = qt.view(3, 8, 8).to(cuda)
+    dct, _ = pipeline.codec_params([50] * 3, cuda)
+    args = (*planes, qt, dct)
+    for g, p in zip(encode.dct_encode_blocks(*args),
+                    encode.dct_encode_blocks_plain(*args)):
+        assert g.is_cuda and torch.equal(g, p)
+    for g, p in zip(encode.dct_encode_phase(*args, "frontonly"),
+                    encode.dct_encode_phase_plain(*args, "frontonly")):
         assert g.is_cuda and torch.equal(g, p)
 
 
@@ -1260,11 +1310,11 @@ def test_encphase_tools_on_the_card(cuda):
 
 def test_encphase_production_encoders_keep_the_recorded_sass(cuda):
     """K1's and K5's production builds against ``tests/encoder_sass.json``,
-    the parent tree's builds as ``tools/kernel_ab.py --sass`` read them
-    before K1's kernel moved into ``csrc/dct_encode.cuh`` and the encoder
-    became a template on the stage it leaves out: the same registers, a
-    0-byte stack and the count of every SASS opcode. A change meant to
-    alter either kernel re-records the file (same command)."""
+    as ``tools/kernel_ab.py --sass`` read them once the encoder's front
+    sorted by two networks: the same registers, a 0-byte stack and the
+    count of every SASS opcode. A change meant to alter either kernel
+    re-records the file (same command); one that is not, such as a new
+    measurement instance, leaves them as they are."""
     import json
     import re
     import subprocess
