@@ -44,19 +44,17 @@ failure ending the run with a non-zero exit code:
    each, the BMP's pixels equal to plain X2 of the plain decode; then the
    same five commands at 1920x1088 with ``--device cuda`` and ``--device
    cpu`` must write identical files;
-6. the staged route (``compress_frame_to_streams`` and
-   ``decompress_streams_to_frame`` with ``fused=False``, K3 -> K5 and
-   K6 -> K4) on the CLI frame at q50, counts set to 0 before and read
-   after: streams and planes identical to the fused route's;
 7. the batched API on 8 x 1920x1088 (``compress_batch_to_streams``,
    ``compress_batch`` + ``decompress_batch``, ``roundtrip_batch``): each
    frame's streams equal ``compress_frame_to_streams`` of that frame and the
    planes the round trip's; then ``batch.roundtrip_step`` on the same batch,
    planes equal to the plain versions' and the symbol histogram to numpy's
    ``bincount`` of the plain coefficients;
-8. every kernel was launched by the path that drives it: ``-to_yuv``
-   launches X1 once, ``-rgb`` and ``-preview`` of the compressed file K2
-   and X2 once each and nothing else;
+8. every kernel was launched by the path that drives it (K1, C1 and X1
+   by phase 5's commands, K3 and K4 by phase 7's ``roundtrip_step``; K5 by
+   the sweep and K6 by the fast main path, checked in 11 (c) and 15 (c)):
+   ``-to_yuv`` launches X1 once, ``-rgb`` and ``-preview`` of the
+   compressed file K2 and X2 once each and nothing else;
 9. times with CUDA events (median of 7; ``probe.cuda_ms``: back-to-back
    calls queued behind a busy card, so the wrappers' host work is left
    out): the six kernels against their plain versions on the CLI frame at
@@ -65,8 +63,8 @@ failure ending the run with a non-zero exit code:
    earlier runs (``probe.host_inclusive_ms``), which the plain versions of
    K1, K2, K5 and K6 take too (the plain decoder synchronises, and the
    plain encoder queues thousands of small launches), labelled
-   host-inclusive; X1 and X2 on the CLI frame against their bound; staged
-   against fused compress and decompress and end-to-end
+   host-inclusive; X1 and X2 on the CLI frame against their bound;
+   ``compress_frame`` and ``decompress_frame`` and end-to-end
    ``compress_dct``/``decompress_dct`` on the host clock; the 8 x 1080p
    ``roundtrip_batch`` (K2 decoding K1's lanes in place) beside the same
    round trip compacting first (the route before it), and
@@ -89,13 +87,12 @@ failure ending the run with a non-zero exit code:
     90 and 100 on a 4032x3008 frame of each content kind: K1 against its
     plain version and ``roundtrip_frame``'s planes, total and ok against
     the plain round trip, then one ``roundtrip_scan`` a quality over the
-    five frames (K = 5, one cached CUDA graph, each call's tables copied
-    in) with totals and oks equal to the frames'; (b) on the CLI frame at
-    q50, the first ``roundtrip_scan`` (K = 8: the capture, the graph's
-    private pool measured around it), then ``sustained_scan_fps`` (K = 8,
-    112 frames) beside ``sustained_roundtrip_fps`` (112 frames), the
-    launches a replay makes, and the scan, its copy of the inputs, its
-    replay, one ``roundtrip_frame``, K1 and K2 decoding K1's lanes in
+    five frames (K = 5) with totals and oks equal to the frames'; (b) on
+    the CLI frame at q50, one ``roundtrip_scan`` (K = 8), then
+    ``sustained_scan_fps`` (K = 8, 112 frames) beside
+    ``sustained_roundtrip_fps`` (112 frames), the scans' launches from
+    Python (K1 and K2 once a scan: the K frames are coded as one), and
+    the scan, one ``roundtrip_frame``, K1 and K2 decoding K1's lanes in
     place timed with ``probe.cuda_ms``; (c)
     ``sweep.quality_sweep`` of the CLI frame at q 10, 30, 50, 70, 90: the
     K3 + K5 and K1 rate routes give the same bytes, PSNR and bytes rise
@@ -147,9 +144,10 @@ failure ending the run with a non-zero exit code:
     else), the file's coefficients equal to plain F1's and its pixels to
     plain F2 of them, PSNR within 0.05 dB of exact; (d) the fast
     ``roundtrip_batch`` on 8 x 1920x1088 equal to F2(F1(x)) and to
-    ``roundtrip_step``'s; (e) a fast ``roundtrip_scan`` at K = 8 (a graph
-    of 8 launches of each of F1, K5, K6, F2); (f) the fast sweep (both rate
-    routes equal, PSNR within 0.05 dB of the exact sweep); (g)
+    ``roundtrip_step``'s; (e) a fast ``roundtrip_scan`` at K = 8 (one
+    launch of each of F1, K5, K6, F2 and nothing else); (f) the fast
+    sweep (both rate routes equal, PSNR within 0.05 dB of the exact
+    sweep); (g)
     ``compress_frame_sharded`` / ``decompress_frame_sharded`` on two shards
     of the card equal to the frame API; (h) F1 and F2 timed beside K3 and
     K4, warm and on inputs in device memory (``tools/common.py::cold``),
@@ -171,7 +169,9 @@ failure ending the run with a non-zero exit code:
     noise frames, with the content-dependent part K1 - K1(flat).
 
 It prints a JSON line with one entry per kernel (its launches on the path
-that drives it -- for F1 and F2 phase 15 (c)'s q50 pair, with
+that drives it -- for K3 and K4 phase 7's ``roundtrip_step``, for K5
+phase 11 (c)'s untimed sweeps, for K6 and for F1 and F2 phase 15 (c)'s
+q50 pair, with
 ``launches_batch``, ``launches_sweep`` and ``launches_sharded`` from (d),
 (f) and (g), ``share_differing_from_exact`` (from K3 / K4) from (a) and
 ``library_ms`` the ``torch.matmul`` formulation; for T1-T7 the tool path
@@ -179,9 +179,8 @@ of phase 12, with the entry's times summed over a tool's variants (T3's four ops
 two layouts) and each variant's under ``variants``; for K1's measurement
 instances phase 16 (a), times summed over the five on the CLI frame and on
 the noise frame, and each under ``variants`` -- and as ``launches_scan``
-and ``launches_sweep`` on phase 11's scans and untimed sweeps, counted from Python, which for the scans
-is the warm body and the capture's record; ``scan_graph_launches``, the
-launches a replay makes, and ``scan_replays``; for K1-K4
+and ``launches_sweep`` on phase 11's scans and untimed sweeps, counted
+from Python; for K1-K4
 ``launches_sharded``, counted on phase 13 (a) and (b); max abs error
 against its plain version, times on the CLI frame and, as ``noise_ms``, on the noise
 frame, and the bound: the larger of the bytes it must move over 3.35 TB/s
@@ -633,23 +632,6 @@ def main() -> int:
               f"preview)", flush=True)
 
     frame_np = img.planes()
-    reset_launches()
-    staged = device_stream.compress_frame_to_streams(frame_np, qt, dct,
-                                                     fused=False)
-    staged_planes = device_stream.decompress_streams_to_frame(
-        staged, qt, dct, H4K, W4K, fused=False)
-    launches["staged"] = dict(build.launches)
-    for (gs, gc), (ws, wc) in zip(staged, plain):
-        check(np.array_equal(gs, ws) and np.array_equal(gc, wc),
-              "staged-route streams differ from the fused route's")
-    for g, w_ in zip(staged_planes, dec.planes()):
-        check(np.array_equal(g, w_),
-              "staged-route planes differ from the fused route's")
-    print(f"[6 staged route] compress_frame_to_streams / "
-          f"decompress_streams_to_frame fused=False on {W4K}x{H4K} q50: "
-          f"streams and planes == fused route; launches "
-          f"{launches['staged']}", flush=True)
-
     kinds = [probe.KINDS[f % len(probe.KINDS)] for f in range(BATCH)]
     frames = [[probe.content_kind(rng, k, s) for s in
                ((H1K, W1K), (H1K // 2, W1K // 2), (H1K // 2, W1K // 2))]
@@ -704,14 +686,18 @@ def main() -> int:
           f"launches batch {launches['batch']}, roundtrip_step "
           f"{launches['roundtrip_step']}", flush=True)
 
+    # K5's path is the sweep (11c) and K6's the fast main path (15c); each
+    # is checked there
     path_of = {"dct_encode": "main", "decode_idct": "main",
-               "dct_quantize": "staged", "dequantize_idct": "staged",
-               "huffman_encode": "staged", "huffman_decode": "staged",
+               "dct_quantize": "roundtrip_step",
+               "dequantize_idct": "roundtrip_step",
+               "huffman_encode": "sweep", "huffman_decode": "fast",
                "bgrx_to_iyuv": "main", "iyuv_to_bgrx": "rgb",
                "compact_chunks": "main"}
     for name, path in path_of.items():
-        check(launches[path][name] > 0,
-              f"{name} never launched on the {path} path: {launches[path]}")
+        if path in launches:
+            check(launches[path][name] > 0, f"{name} never launched on the "
+                  f"{path} path: {launches[path]}")
     check(launches["main"]["bgrx_to_iyuv"] == 1,
           f"-to_yuv launched X1 {launches['main']['bgrx_to_iyuv']} times")
     for op in ("rgb", "preview"):
@@ -720,11 +706,8 @@ def main() -> int:
         check(launches[op] == want, f"-{op} launched {launches[op]}")
     for name in ("dct_encode", "decode_idct"):
         check(launches["batch"][name] > 0, f"batch path skipped {name}")
-    for name in ("dct_quantize", "dequantize_idct"):
-        check(launches["roundtrip_step"][name] > 0,
-              f"roundtrip_step skipped {name}")
-    print(f"[8 launches] main path {launches['main']}; staged route "
-          f"{launches['staged']}; -rgb {launches['rgb']}; -preview "
+    print(f"[8 launches] main path {launches['main']}; roundtrip_step "
+          f"{launches['roundtrip_step']}; -rgb {launches['rgb']}; -preview "
           f"{launches['preview']}", flush=True)
 
     # kernel times on the CLI frame's planes, q50
@@ -834,15 +817,9 @@ def main() -> int:
     noise_planes = nplanes  # phase 12's stage split
     del noise, nplanes, ncoeffs, noise_stream, nstream, noise_runs, npx
 
-    def fused_ms(fused):
-        c = host_ms(lambda: device_stream.compress_frame(*planes, qt, dct,
-                                                         fused=fused))
-        d = host_ms(lambda: device_stream.decompress_frame(
-            stream, sizes, qt, dct, H4K, W4K, fused=fused))
-        return c, d
-
-    fused_c, fused_d = fused_ms(True)
-    staged_c, staged_d = fused_ms(False)
+    frame_c = host_ms(lambda: device_stream.compress_frame(*planes, qt, dct))
+    frame_d = host_ms(lambda: device_stream.decompress_frame(
+        stream, sizes, qt, dct, H4K, W4K))
     e2e_c = host_ms(lambda: pipeline.compress_dct(img, bytes([50] * 3),
                                                   device=dev))
     e2e_d = host_ms(lambda: pipeline.decompress_dct(comp, device=dev))
@@ -850,10 +827,9 @@ def main() -> int:
 
     def compacting_roundtrip():  # the round trip as it was: compact first
         y1, u1, v1 = device_stream.as_one_frame(*bt)
-        csizes, ccontent, cerr = device_stream._encode(y1, u1, v1, qt, dct,
-                                                       True)
+        csizes, ccontent, cerr = device_stream._encode(y1, u1, v1, qt, dct)
         *_, derr = device_stream._decode(ccontent, csizes, qt, dct,
-                                         BATCH * H1K, W1K, True)
+                                         BATCH * H1K, W1K)
         return ~(cerr.any() | derr.any())
 
     rt_compact_ms = host_ms(compacting_roundtrip)
@@ -879,9 +855,8 @@ def main() -> int:
     del blanes
     step_ms = host_ms(lambda: batch.roundtrip_step(*bt, *qt, dct))
     print(f"[9 times] {card} | host clock, median of {REPS}: {W4K}x{H4K} "
-          f"q50 compress_frame fused {fused_c:.3f} ms staged "
-          f"{staged_c:.3f} ms; decompress_frame fused {fused_d:.3f} ms "
-          f"staged {staged_d:.3f} ms; compress_dct {e2e_c:.3f} ms, "
+          f"q50 compress_frame {frame_c:.3f} ms; decompress_frame "
+          f"{frame_d:.3f} ms; compress_dct {e2e_c:.3f} ms, "
           f"decompress_dct {e2e_d:.3f} ms [file in memory to file in "
           f"memory]; {BATCH} x {W1K}x{H1K} q50 roundtrip_batch "
           f"{rt_ms:.3f} ms ({BATCH * 1e3 / rt_ms:.1f} frames/s; the same "
@@ -993,7 +968,6 @@ def main() -> int:
     fstack = [torch.from_numpy(np.stack([f[i] for f in fuzz])).to(dev)
               for i in range(3)]
     del fuzz
-    device_stream.clear_scan_graphs()
     fuzz_oks, fuzz_totals = [], []
     t0 = time.perf_counter()
     for q in FUZZ_QUALITIES:
@@ -1021,53 +995,35 @@ def main() -> int:
               f"{oks_q}")
         fuzz_totals.append(totals_q)
         fuzz_oks += oks_q
-    fuzz_graph = device_stream.scan_graph(len(probe.KINDS), H4K, W4K,
-                                          fstack[0].device)
-    check(fuzz_graph.replays == len(FUZZ_QUALITIES),
-          f"the fuzz scans made {fuzz_graph.replays} graph replays")
     t_fuzz = time.perf_counter() - t0
     del fstack
-    device_stream.clear_scan_graphs()
     print(f"[11a fuzz] {W4K}x{H4K}, q {FUZZ_QUALITIES} x kinds "
           f"{','.join(probe.KINDS)}: {len(fuzz_oks)} frames, K1 == plain "
           f"and roundtrip_frame planes, total and ok == the plain round "
           f"trip (ok False on {fuzz_oks.count(False)}); one roundtrip_scan "
-          f"a quality (K = {len(probe.KINDS)}, {fuzz_graph.replays} "
-          f"replays of one graph, tables copied in each call) == the "
-          f"frames; totals by quality {fuzz_totals}; {t_fuzz:.1f} s; "
+          f"a quality (K = {len(probe.KINDS)}) == the frames; totals by "
+          f"quality {fuzz_totals}; {t_fuzz:.1f} s; "
           f"max_abs_err K1 {errs['dct_encode']} K2 {errs['decode_idct']}",
           flush=True)
 
-    # (b) sustained scans beside the streamed round trip, same frame; the
-    # first scan captures the graph, its private pool measured around it
+    # (b) sustained scans beside the streamed round trip, same frame
     stk = [p.expand(KSCAN, *p.shape).contiguous() for p in planes]
-    graph = device_stream.scan_graph(KSCAN, H4K, W4K, stk[0].device)
-    inputs_mb = sum(t.numel() for t in (graph.ys, graph.us, graph.vs)) / 1e6
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    held0 = torch.cuda.memory_reserved(dev)
     reset_launches()
     first_totals, first_oks = device_stream.roundtrip_scan(*stk, qt, dct)
-    torch.cuda.empty_cache()
-    pool_mb = (torch.cuda.memory_reserved(dev) - held0) / 1e6
     check(first_oks.all() and (first_totals == stream.numel()).all(),
           "the first scan differs from the frame API")
-    check(graph.launches == {"dct_encode": KSCAN, "decode_idct": KSCAN},
-          f"the capture recorded {graph.launches}")
     sc_fps, sc_ok, sc_total = streaming.sustained_scan_fps(
         frame_np, qt, dct, n_frames=NSCAN, k=KSCAN)
     launches["scan"] = dict(build.launches)
-    scan_replays = graph.replays
     check(sc_ok and sc_total == stream.numel(),
           "sustained_scan_fps reported a bad frame or another size")
-    # from Python: the warm body before the capture, then the capture's
-    # record; the replays launch from the graph and add nothing
+    # every scan launches K1 and K2 once: the first, sustained_scan_fps's
+    # warm one and its timed ones
+    scans = 2 + -(-NSCAN // KSCAN)
     want = dict.fromkeys(ALL, 0)
-    want.update({k: 1 + n for k, n in graph.launches.items()})
+    want.update(dct_encode=scans, decode_idct=scans)
     check(launches["scan"] == want, f"the scans launched {launches['scan']} "
           f"from Python")
-    check(scan_replays == 2 + -(-NSCAN // KSCAN),
-          f"the scans made {scan_replays} graph replays")
     rt_fps2, rt_ok2, rt_total2, _ = streaming.sustained_roundtrip_fps(
         frame_np, qt, dct, n_frames=NSCAN)
     check(rt_ok2 and rt_total2 == stream.numel(),
@@ -1078,25 +1034,17 @@ def main() -> int:
     scan_ms = {name: probe.cuda_ms(fn, REPS) for name, fn in (
         ("roundtrip_scan",
          lambda: device_stream.roundtrip_scan(*stk, qt, dct)),
-        ("copy_in", lambda: graph.load(*stk, qt, dct)),
-        ("replay", graph.replay),
         ("roundtrip_frame",
          lambda: device_stream.roundtrip_frame(*planes, qt, dct)),
         ("K1", lambda: encode.dct_encode_blocks(*planes, qt, dct)),
         ("K2 on K1's lanes", lambda: decode.decode_idct_blocks(
             lanes1.view(-1), sizes1, in_place, qt, dct, H4K, W4K)))}
-    graph_launches = graph.launches
-    del stk, lanes1, graph
-    device_stream.clear_scan_graphs()
+    del stk, lanes1
     print(f"[11b scan] {card} | {W4K}x{H4K} q50, K = {KSCAN}, {NSCAN} "
           f"frames, host clock: sustained_scan_fps {sc_fps} fps, "
           f"sustained_roundtrip_fps {rt_fps2} fps (same frame, same count); "
-          f"launches from Python {launches['scan']} (the warm body and "
-          f"the capture's record), a graph of {graph_launches} replayed "
-          f"{scan_replays} times; the graph's "
-          f"private pool {pool_mb:.1f} MB beside its {inputs_mb:.1f} MB of "
-          f"inputs; CUDA events, calls queued behind a busy card, median of "
-          f"{REPS}: "
+          f"launches from Python {launches['scan']}; CUDA events, calls "
+          f"queued behind a busy card, median of {REPS}: "
           + ", ".join(f"{k} {t:.4f} ms" for k, t in scan_ms.items())
           + f" ({scan_ms['roundtrip_scan'] / KSCAN:.4f} ms a frame in a "
           f"scan)", flush=True)
@@ -1257,8 +1205,8 @@ def main() -> int:
                     "noise": [p.cpu().numpy() for p in noise_planes]},
         stack)
     cube_viewer(card, px)
-    fast = fast_path(dev, card, img, planes, noise_planes, stack, rd_coder,
-                     ptxas)
+    fast, launches["fast"] = fast_path(dev, card, img, planes, noise_planes,
+                                       stack, rd_coder, ptxas)
     phases = encoder_split(dev, card)
 
     print(json.dumps({"kernels": [
@@ -1273,8 +1221,6 @@ def main() -> int:
          "library_ms": mask_ms if name == "compact_chunks" else None,
          **(c1_batch if name == "compact_chunks" else {}),
          "launches_scan": launches["scan"][name],
-         "scan_graph_launches": graph_launches.get(name, 0),
-         "scan_replays": scan_replays,
          "launches_sweep": launches["sweep"][name],
          **({"launches_sharded": sharded_counts[name]}
             if name in SHARDED else {})}
@@ -1509,7 +1455,7 @@ def cube_viewer(card: str, px: np.ndarray) -> None:
 
 
 def fast_path(dev, card: str, img, planes, noise_planes, stack,
-              rd_exact, ptxas: dict) -> dict:
+              rd_exact, ptxas: dict) -> tuple:
     """Phase 15: precision="fast". (a) F1 and F2 on the CLI and noise 4K
     frames at q 10, 50, 90 against their plain versions and K3 / K4; (b)
     F1's plain version alike with ``allow_tf32`` True and False; (c) the
@@ -1520,7 +1466,8 @@ def fast_path(dev, card: str, img, planes, noise_planes, stack,
     beside the exact one (``rd_exact``); (g) ``compress_frame_sharded`` on
     the card as two shards; (h) times, warm and on inputs in device memory,
     with ``ptxas``'s report (kernel name: registers, stack, spills) of F1,
-    F2, K3 and K4. Returns F1's and F2's entries of the kernels line."""
+    F2, K3 and K4. Returns F1's and F2's entries of the kernels line and
+    the launches of (c)'s q50 pair."""
     from myyuv_tpu_torch.engine import (batch, device_stream, pipeline,
                                         sharded_stream, sweep)
     from myyuv_tpu_torch.entropy import decode
@@ -1675,27 +1622,26 @@ def fast_path(dev, card: str, img, planes, noise_planes, stack,
     check(launches["batch"] == want,
           f"the fast batch round trip launched {launches['batch']}")
 
-    # (e) a fast scan: one graph of K frames of F1, K5, K6 and F2
+    # (e) a fast scan: K frames coded as one, F1, K5, K6 and F2 once each
     stk = [p.expand(KSCAN, *p.shape).contiguous() for p in planes]
-    device_stream.clear_scan_graphs()
     reset_launches()
     totals, oks = device_stream.roundtrip_scan(*stk, qt, dct, "fast")
     launches["scan"] = dict(build.launches)
-    graph = device_stream.scan_graph(KSCAN, H4K, W4K, stk[0].device, "fast")
     fsizes, fcontent = device_stream.compress_frame(*planes, qt, dct,
                                                     precision="fast")
     check(oks.all() and (totals == fcontent.numel()).all(),
           "the fast scan differs from the fast frame API")
-    check(graph.launches == dict.fromkeys(
-        ("fast_dct_quantize", "huffman_encode", "huffman_decode",
-         "fast_dequantize_idct"), KSCAN),
-        f"the fast scan's graph recorded {graph.launches}")
+    want = dict.fromkeys(ALL, 0)
+    want.update(dict.fromkeys(("fast_dct_quantize", "huffman_encode",
+                               "huffman_decode", "fast_dequantize_idct"), 1))
+    check(launches["scan"] == want,
+          f"the fast scan launched {launches['scan']}")
     print(f"[15d/e fast batch and scan] {BATCH} x {W1K}x{H1K} q50 "
           f"roundtrip_batch precision='fast': planes == F2(F1(x)) == "
           f"roundtrip_step's, {int(btotal)} bytes, launches "
           f"{launches['batch']}; roundtrip_scan K = {KSCAN} of the 4K CLI "
-          f"frame: totals == compress_frame's {fcontent.numel()}, a graph of "
-          f"{graph.launches}, launches from Python {launches['scan']}",
+          f"frame: totals == compress_frame's {fcontent.numel()}, launches "
+          f"from Python {launches['scan']}",
           flush=True)
 
     # (f) the fast sweep: PSNR within FAST_PSNR_DB of the exact sweep's,
@@ -1856,10 +1802,8 @@ def fast_path(dev, card: str, img, planes, noise_planes, stack,
                                           precision=prec),
             lambda: device_stream.roundtrip_batch(*bt, qt, dct, prec),
             lambda: batch.roundtrip_step(*bt, *qt, dct, prec))]
-    device_stream.clear_scan_graphs()
     scan_ms = {prec: probe.cuda_ms(lambda: device_stream.roundtrip_scan(
         *stk, qt, dct, prec), REPS) for prec in ("exact", "fast")}
-    device_stream.clear_scan_graphs()
     print(f"[15h times] {card} | {W4K}x{H4K} q50 CLI frame, CUDA events "
           f"around calls queued behind a busy card, median of {REPS}: "
           f"F1 {times['fast_dct_quantize']:.4f} ms against K3 "
@@ -1888,17 +1832,17 @@ def fast_path(dev, card: str, img, planes, noise_planes, stack,
                f"roundtrip_step {BATCH} x 1080p"),
               host["exact"], host["fast"])), flush=True)
     del stk, frame, bt, tall
-    return {name: {"launches": launches["main"][name],
-                   "max_abs_err": errs[name],
-                   "share_differing_from_exact": vs_exact[name],
-                   "ms": times[name], "cold_ms": cold_ms[name],
-                   "plain_ms": plain[name],
-                   "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-                   "library_ms": library[name],
-                   "launches_batch": launches["batch"][name],
-                   "launches_sweep": launches["sweep"][name],
-                   "launches_sharded": launches["sharded"][name]}
-            for name in FAST}
+    return ({name: {"launches": launches["main"][name],
+                    "max_abs_err": errs[name],
+                    "share_differing_from_exact": vs_exact[name],
+                    "ms": times[name], "cold_ms": cold_ms[name],
+                    "plain_ms": plain[name],
+                    "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                    "library_ms": library[name],
+                    "launches_batch": launches["batch"][name],
+                    "launches_sweep": launches["sweep"][name],
+                    "launches_sharded": launches["sharded"][name]}
+             for name in FAST}, launches["main"])
 
 
 def encoder_split(dev, card: str) -> dict:

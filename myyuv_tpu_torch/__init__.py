@@ -10,10 +10,11 @@ Layout (each module is the counterpart of ``myyuv_tpu``'s of that name):
   kernels/  constants, plain PyTorch transforms, the nvcc build of csrc/,
             the K3/K4 and X1/X2 (colour conversion) wrappers
   entropy/  plain PyTorch Huffman coder; K1/K2, K5/K6 kernel wrappers
-  engine/   frame codec on the device, ingest/preview, streaming drivers,
-            K-frame scans on CUDA graphs, the RD statistics step and
-            quality sweep; codec entry points and registry; the frame
-            codec and round trip step sharded over a device mesh
+  engine/   frame codec on the device, ingest/preview, streaming drivers
+            (compress_stream on CUDA graphs), K-frame scans, the RD
+            statistics step and quality sweep; codec entry points and
+            registry; the frame codec and round trip step sharded over a
+            device mesh
   parallel/ the (data, block) device mesh; the gloo process group
   viewer/   BMP export and terminal preview (numpy); the spinning-shapes
             demo (numpy camera, PyTorch rasteriser)

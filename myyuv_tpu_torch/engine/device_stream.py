@@ -1,20 +1,14 @@
 """Frame and batch codec on the device: planes up once, file bytes down once.
 
-Port of ``myyuv_tpu/engine/device_stream.py`` in block-major form. Two
-routes give the same bytes and pixels:
+Port of ``myyuv_tpu/engine/device_stream.py`` in block-major form. One
+route a precision:
 
-  fused (default):
-    compress:   planes --h2d--> K1 (dct_encode_blocks) -> lanes, sizes
-                -> on-device compaction to the exact on-disk byte stream
-                --d2h--> sizes, content -> per-plane split
-    decompress: sizes, content (as the file holds them) --h2d-->
-                offsets = cumsum(sizes) on the device -> K2
-                (decode_idct_blocks) -> planes --d2h-->
-  staged (``fused=False``; the JAX flat route and two-kernel decompress):
-    compress:   K3 (dct_quantize_blocks) -> [N, 64] i16 coefficients -> K5
-                (encode_blocks) -> lanes, sizes -> the same compaction
-    decompress: offsets -> K6 (decode_blocks) -> coefficients -> K4
-                (dequantize_idct_blocks) -> planes
+  compress:   planes --h2d--> K1 (dct_encode_blocks) -> lanes, sizes
+              -> on-device compaction to the exact on-disk byte stream
+              --d2h--> sizes, content -> per-plane split
+  decompress: sizes, content (as the file holds them) --h2d-->
+              offsets = cumsum(sizes) on the device -> K2
+              (decode_idct_blocks) -> planes --d2h-->
 
 The compaction is C1 (``csrc/compact_chunks.cu``, wrapper
 ``compact_chunks``; the plain version ``compact_chunks_plain`` is the
@@ -36,17 +30,18 @@ package's ``word_frame.ingest_frame`` / ``preview_frame``): X1
 (``kernels/convert.py``) then K1, and K2 then X2, two launches each.
 
 K frames a call (``roundtrip_scan``, the JAX package's ``lax.scan`` of
-``roundtrip_frame``): a CUDA graph of K captured ``roundtrip_frame``
-bodies (``ScanGraph``), replayed once a call.
+``roundtrip_frame``): the K frames coded as one frame, as a batch is, with
+each frame's total and ok reduced from its own blocks.
 
 ``precision="fast"`` (the entries whose JAX counterparts take it; default
-"exact", any other value raises ValueError) takes the staged route with
-the fast transforms, as the JAX package's ``fast`` never enters its packed
-or fused kernels (``myyuv_tpu/engine/device_stream.py:188, 477``): F1
-(``transform.fast_dct_quantize_blocks``) then K5 to compress, K6 then F2
-(``fast_dequantize_idct_blocks``) to decompress; ``fused`` is ignored.
-Coefficients and pixels are within +-1 of exact; the streams are ordinary
-``.myyuv`` DCT streams, which decode with either precision.
+"exact", any other value raises ValueError) splits each kernel in two,
+with the fast transforms, as the JAX package's ``fast`` never enters its
+packed or fused kernels (``myyuv_tpu/engine/device_stream.py:188, 477``):
+F1 (``transform.fast_dct_quantize_blocks``) then K5 (``encode_blocks``)
+to compress, K6 (``decode_blocks``) then F2
+(``fast_dequantize_idct_blocks``) to decompress. Coefficients and pixels
+are within +-1 of exact; the streams are ordinary ``.myyuv`` DCT streams,
+which decode with either precision.
 
 Blocks are ordered Y raster, then U, then V (DCT.cpp:112-173). A batch of B
 frames ([B, H, W] and 2x [B, H/2, W/2], contiguous) is coded as one frame of
@@ -57,7 +52,7 @@ kernel of its own.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -162,22 +157,20 @@ def scatter_chunks(lanes: torch.Tensor, sizes: torch.Tensor
     return out, sizes.sum(dtype=torch.int64)
 
 
-def frame_lanes(y, u, v, qtables, dct, fused: bool = True,
-                precision: str = "exact"):
+def frame_lanes(y, u, v, qtables, dct, precision: str = "exact"):
     """Planes -> (lanes u8 [N, 256], sizes i32 [N], err i32 [N]): K1, or
-    K3 then K5 with ``fused=False``, or F1 then K5 with
-    ``precision="fast"``."""
-    if fused and not kdev.is_fast(precision):
+    F1 then K5 with ``precision="fast"``."""
+    if not kdev.is_fast(precision):
         return encode.dct_encode_blocks(y, u, v, qtables, dct)
     return encode.encode_blocks(transform.dct_quantize_blocks(
         y, u, v, qtables, dct, precision))
 
 
 def frame_planes(content, sizes, offsets, qtables, dct, h, w,
-                 fused: bool = True, precision: str = "exact"):
-    """Chunks at ``offsets`` -> (y, u, v, err i32 [N]): K2, or K6 then K4
-    with ``fused=False``, or K6 then F2 with ``precision="fast"``."""
-    if fused and not kdev.is_fast(precision):
+                 precision: str = "exact"):
+    """Chunks at ``offsets`` -> (y, u, v, err i32 [N]): K2, or K6 then F2
+    with ``precision="fast"``."""
+    if not kdev.is_fast(precision):
         return decode.decode_idct_blocks(content, sizes, offsets, qtables,
                                          dct, h, w)
     coeffs, err = decode.decode_blocks(content, sizes, offsets)
@@ -185,37 +178,35 @@ def frame_planes(content, sizes, offsets, qtables, dct, h, w,
                                               precision), err)
 
 
-def _encode(y, u, v, qtables, dct, fused: bool, precision: str = "exact"):
+def _encode(y, u, v, qtables, dct, precision: str = "exact"):
     """Planes -> (sizes i32 [N], content u8 [T], err i32 [N])."""
-    lanes, sizes, err = frame_lanes(y, u, v, qtables, dct, fused, precision)
+    lanes, sizes, err = frame_lanes(y, u, v, qtables, dct, precision)
     return sizes, compact_chunks(lanes, sizes), err
 
 
-def _decode(content, sizes, qtables, dct, h, w, fused: bool,
-            precision: str = "exact"):
+def _decode(content, sizes, qtables, dct, h, w, precision: str = "exact"):
     """(content, sizes) -> (y, u, v, err i32 [N])."""
     offsets = torch.cumsum(sizes, 0, dtype=torch.int64) - sizes
-    return frame_planes(content, sizes, offsets, qtables, dct, h, w, fused,
+    return frame_planes(content, sizes, offsets, qtables, dct, h, w,
                         precision)
 
 
 def compress_frame(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                    qtables: torch.Tensor, dct: torch.Tensor,
-                   fused: bool = True, precision: str = "exact"
+                   precision: str = "exact"
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Device planes -> (sizes i32 [N], content u8 [T]) on the same device:
     the chunks of all blocks back to back, exactly as the file stores
-    them. ``fused=False`` takes the staged route (K3 then K5);
-    ``precision="fast"`` F1 then K5, whatever ``fused`` says."""
+    them. ``precision="fast"``: F1 then K5."""
     with trace.span("stream.compress_frame"):
-        return _compress(y, u, v, qtables, dct, fused, precision)
+        return _compress(y, u, v, qtables, dct, precision)
 
 
-def _compress(y, u, v, qtables, dct, fused: bool, precision: str):
+def _compress(y, u, v, qtables, dct, precision: str):
     """``compress_frame``'s body, also ``compress_batch``'s: a batch entry
     records its frame entry's span around its own work too, and spans of
     one name must not nest."""
-    sizes, content, err = _encode(y, u, v, qtables, dct, fused, precision)
+    sizes, content, err = _encode(y, u, v, qtables, dct, precision)
     _raise_first_bad(err, "Huffman encode")
     return sizes, content
 
@@ -264,33 +255,28 @@ def to_host(t: torch.Tensor) -> np.ndarray:
 
 def compress_frame_to_streams(planes: Sequence[np.ndarray],
                               qtables: torch.Tensor, dct: torch.Tensor,
-                              fused: bool = True, precision: str = "exact"
-                              ) -> List[Stream]:
+                              precision: str = "exact") -> List[Stream]:
     """(y, u, v) uint8 planes -> [(sizes u8, content u8)] per plane, coded
     on ``qtables.device`` (``compress_frame``'s routes)."""
     sizes, content = compress_frame(*to_device(planes, qtables.device),
-                                    qtables, dct, fused, precision)
+                                    qtables, dct, precision)
     return split_planes(to_host(sizes), to_host(content), *planes[0].shape)
 
 
 def decompress_frame(content: torch.Tensor, sizes: torch.Tensor,
                      qtables: torch.Tensor, dct: torch.Tensor, h: int,
-                     w: int, fused: bool = True, precision: str = "exact"
+                     w: int, precision: str = "exact"
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(content u8 [T], sizes i32 [N]) on the device -> (y, u, v) uint8
     planes on it. Raises BitstreamError naming the first bad block.
-    ``fused=False`` takes the staged route (K6 then K4);
-    ``precision="fast"`` K6 then F2, whatever ``fused`` says."""
+    ``precision="fast"``: K6 then F2."""
     with trace.span("stream.decompress_frame"):
-        return _decompress(content, sizes, qtables, dct, h, w, fused,
-                           precision)
+        return _decompress(content, sizes, qtables, dct, h, w, precision)
 
 
-def _decompress(content, sizes, qtables, dct, h, w, fused: bool,
-                precision: str):
+def _decompress(content, sizes, qtables, dct, h, w, precision: str):
     """``decompress_frame``'s body, also ``decompress_batch``'s."""
-    y, u, v, err = _decode(content, sizes, qtables, dct, h, w, fused,
-                           precision)
+    y, u, v, err = _decode(content, sizes, qtables, dct, h, w, precision)
     _raise_first_bad(err, "Huffman decode")
     return y, u, v
 
@@ -316,16 +302,14 @@ def streams_to_device(streams: Sequence[Stream], dev: torch.device
 
 def decompress_streams_to_frame(streams: Sequence[Stream],
                                 qtables: torch.Tensor, dct: torch.Tensor,
-                                h: int, w: int, fused: bool = True,
-                                precision: str = "exact"
+                                h: int, w: int, precision: str = "exact"
                                 ) -> Tuple[np.ndarray, np.ndarray,
                                            np.ndarray]:
     """Per-plane (sizes u8, content u8) -> (y, u, v) uint8 planes, decoded
     on ``qtables.device`` (``streams_to_device``'s checks;
     ``decompress_frame``'s routes)."""
     content, sizes = streams_to_device(streams, qtables.device)
-    y, u, v = decompress_frame(content, sizes, qtables, dct, h, w, fused,
-                               precision)
+    y, u, v = decompress_frame(content, sizes, qtables, dct, h, w, precision)
     return to_host(y), to_host(u), to_host(v)
 
 
@@ -363,8 +347,7 @@ def compress_batch(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     BitstreamError naming the first bad block. ``precision="fast"``: F1
     then K5."""
     with trace.span("stream.compress_frame"):
-        return _compress(*as_one_frame(y, u, v), qtables, dct, True,
-                         precision)
+        return _compress(*as_one_frame(y, u, v), qtables, dct, precision)
 
 
 def decompress_batch(content: torch.Tensor, sizes: torch.Tensor,
@@ -375,7 +358,7 @@ def decompress_batch(content: torch.Tensor, sizes: torch.Tensor,
     [B, H/2, W/2]) uint8 planes on the device. Raises BitstreamError
     naming the first bad block. ``precision="fast"``: K6 then F2."""
     with trace.span("stream.decompress_frame"):
-        y, u, v = _decompress(content, sizes, qtables, dct, b * h, w, True,
+        y, u, v = _decompress(content, sizes, qtables, dct, b * h, w,
                               precision)
         return (y.view(b, h, w), u.view(b, h // 2, w // 2),
                 v.view(b, h // 2, w // 2))
@@ -395,6 +378,16 @@ def roundtrip_frame(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
 
 def _roundtrip(y, u, v, qtables, dct, precision: str):
     """``roundtrip_frame``'s body, also ``roundtrip_batch``'s."""
+    ry, ru, rv, sizes, cerr, derr = _roundtrip_blocks(y, u, v, qtables, dct,
+                                                      precision)
+    ok = ~(cerr.any() | derr.any())
+    return ry, ru, rv, sizes.sum(dtype=torch.int64), ok
+
+
+def _roundtrip_blocks(y, u, v, qtables, dct, precision: str):
+    """Planes -> (ry, ru, rv, sizes i32 [N], cerr i32 [N], derr i32 [N]):
+    K1 (F1 and K5 when fast), then K2 (K6 and F2) on its lanes in place
+    (offsets 256 * b)."""
     h, w = y.shape
     lanes, sizes, cerr = frame_lanes(y, u, v, qtables, dct,
                                      precision=precision)
@@ -402,143 +395,22 @@ def _roundtrip(y, u, v, qtables, dct, precision: str):
                            device=lanes.device) * LANE
     ry, ru, rv, derr = frame_planes(lanes.view(-1), sizes, offsets,
                                     qtables, dct, h, w, precision=precision)
-    ok = ~(cerr.any() | derr.any())
-    return ry, ru, rv, sizes.sum(dtype=torch.int64), ok
+    return ry, ru, rv, sizes, cerr, derr
 
 
-def _scan_bodies(ys, us, vs, qtables, dct, precision: str = "exact"):
-    """``roundtrip_frame`` of each of K stacked frames -> (totals i64 [K],
-    oks bool [K]) on their device."""
-    outs = [roundtrip_frame(ys[i], us[i], vs[i], qtables, dct, precision)[3:]
-            for i in range(ys.shape[0])]
-    if not outs:
-        return (torch.zeros(0, dtype=torch.int64, device=ys.device),
-                torch.zeros(0, dtype=torch.bool, device=ys.device))
-    return (torch.stack([t for t, _ in outs]),
-            torch.stack([o for _, o in outs]))
-
-
-def capture_graph(body: Callable, device: torch.device,
-                  warm: Optional[Callable] = None):
-    """``body()`` captured as one CUDA graph on ``device`` -> (graph, what
-    the captured ``body`` returned, launches). ``warm()`` (default
-    ``body``) runs eagerly on a side stream first, so each kernel's module
-    is loaded before the capture (loading one inside it can break it); the
-    capture synchronises the card. ``launches``: the ``build.launches`` the
-    capture recorded, which each replay makes on the card (a replay adds
-    nothing to ``build.launches``). A failed capture raises."""
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        (warm or body)()
-    torch.cuda.current_stream(device).wait_stream(side)
-    before = dict(build.launches)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = body()
-    launches = {name: build.launches[name] - n for name, n in before.items()
-                if build.launches[name] > n}
-    return graph, out, launches
-
-
-class ScanGraph:
-    """One CUDA graph of K ``roundtrip_frame`` bodies over [K, H, W] frames
-    on one CUDA device: K launches of K1 and K of K2 (with
-    ``precision="fast"``, K each of F1, K5, K6 and F2), no host work
-    between them, one ``replay`` a call.
-
-    A graph reads and writes the addresses it was captured with, so it
-    owns its inputs (``ys``, ``us``, ``vs``, ``qtables``, ``dct``) and its
-    outputs (``totals``, ``oks``): ``run`` copies a call's frames and
-    tables into the inputs before the replay (a q90 call on a graph
-    captured at q50 computes q90), and returns copies of the outputs. The
-    first ``run`` captures, after one eager body on a side stream, so
-    each kernel's module is loaded before the capture (loading one inside
-    it can break it); the capture synchronises the card. A failed capture
-    raises; there is no eager fall-back.
-
-    ``build.launches`` counts launches made from Python: the eager body and
-    the capture's recorded calls count there, a replay adds nothing.
-    ``launches`` holds the calls the capture recorded, which each replay
-    makes on the card; ``replays`` counts the replays.
-
-    The inputs are shared by every call, so calls of one graph must be
-    queued on one stream: a call on another stream could overwrite them
-    before an earlier replay has read them."""
-
-    def __init__(self, k: int, h: int, w: int, device: torch.device,
-                 precision: str = "exact"):
-        def empty(*shape, dtype=torch.uint8):
-            return torch.empty(shape, dtype=dtype, device=device)
-
-        self.device = device
-        self.precision = precision
-        self.ys, self.us, self.vs = (empty(k, h, w),
-                                     empty(k, h // 2, w // 2),
-                                     empty(k, h // 2, w // 2))
-        self.qtables = empty(3, 8, 8, dtype=torch.float32)
-        self.dct = empty(8, 8, dtype=torch.float32)
-        self.graph = None
-        self.totals = self.oks = None
-        self.launches: Dict[str, int] = {}
-        self.replays = 0
-
-    def load(self, ys, us, vs, qtables, dct) -> None:
-        """Copy a call's inputs into the graph's own, on the current stream
-        (no host sync)."""
-        for dst, src in zip((self.ys, self.us, self.vs, self.qtables,
-                             self.dct), (ys, us, vs, qtables, dct)):
-            dst.copy_(src)
-
-    def capture(self) -> None:
-        args = (self.ys, self.us, self.vs, self.qtables, self.dct)
-        self.graph, (self.totals, self.oks), self.launches = capture_graph(
-            lambda: _scan_bodies(*args, self.precision), self.device,
-            warm=lambda: _scan_bodies(*(a[:1] for a in args[:3]),
-                                      *args[3:], self.precision))
-
-    def replay(self) -> None:
-        """One replay of the captured bodies on the current stream."""
-        self.graph.replay()
-        self.replays += 1
-
-    def run(self, ys, us, vs, qtables, dct):
-        """(totals i64 [K], oks bool [K]) of the frames, as new tensors."""
-        with torch.cuda.device(self.device):
-            self.load(ys, us, vs, qtables, dct)
-            if self.graph is None:
-                self.capture()
-            self.replay()
-            return self.totals.clone(), self.oks.clone()
-
-
-_scan_graphs: Dict[Tuple, ScanGraph] = {}
-
-
-def scan_graph(k: int, h: int, w: int, device: torch.device,
-               precision: str = "exact") -> ScanGraph:
-    """The cached ``ScanGraph`` of K h x w frames on CUDA ``device`` at
-    ``precision``; made (not yet captured) at first use."""
-    kdev.is_fast(precision)
-    key = (device, k, h, w, precision)
-    if key not in _scan_graphs:
-        _scan_graphs[key] = ScanGraph(k, h, w, device, precision)
-    return _scan_graphs[key]
-
-
-def clear_scan_graphs() -> None:
-    """Drop every cached ``ScanGraph``: their inputs and their graphs'
-    private memory pools (at 4032x3008, about a frame's 73 MB of K1 lanes
-    and its planes a graph, and the K frames' inputs) go back to PyTorch's
-    caching allocator, and ``torch.cuda.empty_cache()`` hands them to the
-    driver."""
-    _scan_graphs.clear()
-
-
-def _check_scan(ys, us, vs, qtables, dct) -> Tuple[int, int, int]:
-    """Raise ValueError unless ys [K, H, W] and us, vs [K, H/2, W/2] u8,
-    qtables [3, 8, 8] and dct [8, 8] f32 are contiguous on one device, H
-    and W positive multiples of 16; return (K, H, W)."""
+def roundtrip_scan(ys: torch.Tensor, us: torch.Tensor, vs: torch.Tensor,
+                   qtables: torch.Tensor, dct: torch.Tensor,
+                   precision: str = "exact"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K whole-frame round trips of stacked frames ([K, H, W] and
+    2x [K, H/2, W/2] u8, contiguous; qtables [3, 8, 8] and dct [8, 8] f32
+    on their device; H and W positive multiples of 16, else ValueError) ->
+    (totals i64 [K], oks bool [K]) on their device, equal to K calls of
+    ``roundtrip_frame`` — the counterpart of the JAX package's ``lax.scan``
+    executable. The stack is coded as one frame of K * H rows, as a batch
+    is (K1 and K2 once a scan; F1, K5, K6 and F2 with
+    ``precision="fast"``), and each frame's total and ok are reduced from
+    its own blocks of the plane-major Y, U and V ranges. No host sync."""
     if ys.dim() != 3:
         raise ValueError("ys must be [K, H, W]")
     k, h, w = ys.shape
@@ -549,32 +421,19 @@ def _check_scan(ys, us, vs, qtables, dct) -> Tuple[int, int, int]:
         ("vs", vs, (k, h // 2, w // 2), torch.uint8),
         ("qtables", qtables, (3, 8, 8), torch.float32),
         ("dct", dct, (8, 8), torch.float32))
-    return k, h, w
+    if k == 0:
+        return (torch.zeros(0, dtype=torch.int64, device=ys.device),
+                torch.zeros(0, dtype=torch.bool, device=ys.device))
+    with trace.span("stream.roundtrip_frame"):
+        *_, sizes, cerr, derr = _roundtrip_blocks(
+            *as_one_frame(ys, us, vs), qtables, dct, precision)
+        ranges = [k * n for n in plane_block_counts(h, w)]
 
+        def per_frame(x):  # [K * Nf] plane-major -> [K, Nf], frame-major
+            return torch.cat([r.view(k, -1) for r in x.split(ranges)], 1)
 
-def roundtrip_scan(ys: torch.Tensor, us: torch.Tensor, vs: torch.Tensor,
-                   qtables: torch.Tensor, dct: torch.Tensor,
-                   precision: str = "exact"
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K whole-frame round trips of stacked frames ([K, H, W] and
-    2x [K, H/2, W/2] u8) -> (totals i64 [K], oks bool [K]) on their
-    device, equal to K calls of ``roundtrip_frame`` — the counterpart of
-    the JAX package's ``lax.scan`` executable.
-
-    On a CUDA device: one replay of the cached ``ScanGraph`` of the
-    geometry (captured at the first call, which waits for the card), after
-    copying the frames and tables into its inputs; later calls wait for
-    nothing. Calls of one geometry share the graph's inputs, so queue them
-    on one stream. Each geometry keeps its graph, its inputs and its
-    private pool (117.4 MB beside 145.5 MB of inputs at K = 8 of
-    4032x3008 on an H100) until ``clear_scan_graphs()``. On the CPU: the
-    same K bodies in a loop. ``precision`` joins the graph's key: a fast
-    scan's graph runs F1, K5, K6 and F2 a frame."""
-    k, h, w = _check_scan(ys, us, vs, qtables, dct)
-    if build.on_cpu(ys.device, "roundtrip_scan") or k == 0:
-        return _scan_bodies(ys, us, vs, qtables, dct, precision)
-    return scan_graph(k, h, w, ys.device, precision).run(ys, us, vs,
-                                                         qtables, dct)
+        return (per_frame(sizes).sum(1, dtype=torch.int64),
+                ~per_frame(cerr | derr).any(1))
 
 
 def encode_frame(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
@@ -622,8 +481,7 @@ def preview_frame(content: torch.Tensor, sizes: torch.Tensor,
 def _preview(content, sizes, qtables, dct, h, w, precision: str = "exact"):
     """``preview_frame`` at ``precision`` (K6 and F2 when fast, then X2):
     the step of ``streaming.preview_stream``."""
-    *planes, err = _decode(content, sizes, qtables, dct, h, w, True,
-                           precision)
+    *planes, err = _decode(content, sizes, qtables, dct, h, w, precision)
     return convert.iyuv_to_bgrx(*planes), ~err.any()
 
 

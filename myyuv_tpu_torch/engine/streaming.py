@@ -23,8 +23,8 @@ to back and waits for the card only where a result must reach the host:
   frame pulled before it while this pull runs.
 
 ``roundtrip_scan_stream`` and ``sustained_scan_fps`` queue K frames a call
-through ``device_stream.roundtrip_scan``: one CUDA graph replay of K
-round trips a call.
+through ``device_stream.roundtrip_scan``: the K frames coded as one
+frame, K1 and K2 once a scan.
 
 The drivers whose JAX counterparts take ``precision`` take it too (default
 "exact"; "fast" runs F1 then K5 to compress, K6 then F2 to decompress, as
@@ -44,7 +44,8 @@ from __future__ import annotations
 import itertools
 import time
 from collections import deque
-from typing import Iterable, Iterator, List, Sequence, Tuple, Union
+from typing import (Callable, Iterable, Iterator, List, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -161,7 +162,7 @@ def sustained_scan_fps(planes_np: Sequence[np.ndarray],
                        precision: str = "exact"):
     """Upload one frame to ``qtables.device``, stack it K times and run
     ceil(n_frames / K) scans of the stack (``roundtrip_scan_stream``) after
-    one warm scan, which captures the graph. Returns (fps on the host clock,
+    one warm scan, which loads the kernels. Returns (fps on the host clock,
     ok of every timed frame, compressed bytes of the frame)."""
     frame = ds.to_device(planes_np, qtables.device)
     stack = [p.expand(k, *p.shape).contiguous() for p in frame]
@@ -250,12 +251,30 @@ def _encode(frame: Frame, qtables: torch.Tensor, dct: torch.Tensor,
     return _head(sizes, ok, h, w), content
 
 
+def _capture_graph(body: Callable, device: torch.device):
+    """``body()`` captured as one CUDA graph on ``device`` -> (graph, what
+    the captured ``body`` returned). ``body()`` runs eagerly on a side
+    stream first, so each kernel's module is loaded before the capture
+    (loading one inside it can break it); the capture synchronises the
+    card. A replay adds nothing to ``build.launches``. A failed capture
+    raises."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = body()
+    return graph, out
+
+
 class _Slot:
     """A frame's place on the card in ``compress_stream``: (y, u, v)
     planes of its own and one CUDA graph of ``ds.encode_frame`` and
     ``_head`` on them (K1, or F1 and K5 when fast, then ``scatter_chunks``'
     zero-fill, cumulative sum and C1, and the head's three launches),
-    captured at the slot's first frame by ``ds.capture_graph``. The graph
+    captured at the slot's first frame by ``_capture_graph``. The graph
     owns its outputs, the head and the content buffer; a replay
     overwrites them."""
 
@@ -286,7 +305,7 @@ class _Slot:
                 sizes, content, _, ok = ds.encode_frame(y, u, v, qtables,
                                                         dct, precision)
                 return _head(sizes, ok, *y.shape), content
-            self.graph, self.out, _ = ds.capture_graph(body, y.device)
+            self.graph, self.out = _capture_graph(body, y.device)
         self.graph.replay()
         return self.out
 

@@ -1,8 +1,8 @@
 """The CUDA kernels K1-K6, X1, X2 and T1-T7 against their plain PyTorch
 versions on the card, the staged route and batch API against the fused
-route, and the streaming drivers against the frame API, ``roundtrip_scan``'s
-CUDA graph against the eager round trip and the sweep's two rate routes
-against each other. Marked ``gpu``: they skip where no CUDA device is
+route, and the streaming drivers against the frame API, ``roundtrip_scan``
+against K round trips and the sweep's two rate routes against each
+other. Marked ``gpu``: they skip where no CUDA device is
 present, and run with ``python -m pytest tests/test_torch_gpu.py`` on a
 machine with one (``-k convert`` for X1 and X2, ``-k streaming`` for the
 drivers, ``-k "scan or sweep"`` for the scan and the sweep, ``-k "tree or
@@ -482,19 +482,31 @@ def test_k6_codes_match_k2_on_corrupt_chunks(rng, cuda):
 
 
 def test_staged_route_and_batch_equal_fused_on_card(rng, cuda):
+    """The staged route composed from the K3, K5, C1, K6 and K4 wrappers
+    equals the frame route's K1 and K2; the batch API equals the frame
+    API."""
     from myyuv_tpu_torch.engine import batch
     h, w, b = 64, 128, 3
     dct, qt = pipeline.codec_params([75] * 3, cuda)
     frames = [_frame(rng, h, w) for _ in range(b)]
-    staged = device_stream.compress_frame_to_streams(frames[0], qt, dct,
-                                                     fused=False)
+    lanes, sizes, err = encode.encode_blocks(transform.dct_quantize_blocks(
+        *device_stream.to_device(frames[0], cuda), qt, dct))
+    assert not err.any()
+    staged = device_stream.split_planes(
+        device_stream.to_host(sizes),
+        device_stream.to_host(device_stream.compact_chunks(lanes, sizes)),
+        h, w)
     fused = device_stream.compress_frame_to_streams(frames[0], qt, dct)
     for (gs, gc), (fs, fc) in zip(staged, fused):
         assert np.array_equal(gs, fs) and np.array_equal(gc, fc)
-    for a, f in zip(device_stream.decompress_streams_to_frame(
-            fused, qt, dct, h, w, fused=False),
-            device_stream.decompress_streams_to_frame(fused, qt, dct, h, w)):
-        assert np.array_equal(a, f)
+    content, sizes = device_stream.streams_to_device(fused, cuda)
+    offsets = torch.cumsum(sizes, 0, dtype=torch.int64) - sizes
+    coeffs, err = decode.decode_blocks(content, sizes, offsets)
+    assert not err.any()
+    for a, f in zip(transform.dequantize_idct_blocks(coeffs, qt, dct, h, w),
+                    device_stream.decompress_streams_to_frame(fused, qt, dct,
+                                                              h, w)):
+        assert np.array_equal(device_stream.to_host(a), f)
     stack = [np.stack([f[i] for f in frames]) for i in range(3)]
     per_frame = device_stream.compress_batch_to_streams(stack, qt, dct)
     for f in range(b):
@@ -734,63 +746,35 @@ def _scan_stack(frames, dev):
             for i in range(3)]
 
 
-def test_scan_graph_replay_equals_eager_frames(rng, cuda, monkeypatch):
-    """roundtrip_scan on the card: the first call captures one graph of K
-    round trips, recording K launches of K1 and K of K2; every call is one
-    replay of it, with no kernel launched from Python (``build.launch``
-    refuses) and nothing added to the counts; totals and oks equal K eager
-    roundtrip_frame calls, also when the next call brings other frames."""
-    k, h, w = 3, 256, 512
-    dct, qt = pipeline.codec_params([75] * 3, cuda)
-    first, second = (_scan_stack(_stream_frames(rng, k, h, w), cuda)
-                     for _ in range(2))
-    device_stream.clear_scan_graphs()
-    totals, oks = device_stream.roundtrip_scan(*first, qt, dct)
-    graph = device_stream.scan_graph(k, h, w, first[0].device)
-    assert graph.replays == 1
-    assert graph.launches == {"dct_encode": k, "decode_idct": k}
-
-    def eager(ys, us, vs):
-        outs = [device_stream.roundtrip_frame(ys[i], us[i], vs[i], qt, dct)
-                for i in range(k)]
-        return [int(o[3]) for o in outs], [bool(o[4]) for o in outs]
-
-    want_first, want_second = eager(*first), eager(*second)
-    assert (totals.tolist(), oks.tolist()) == want_first
-    assert all(want_first[1]) and all(want_second[1])
-
-    def no_launch(*args):
-        raise AssertionError("a scan launched a kernel from Python")
-
+def _launched(fn):
+    """fn() and the kernels it launched from Python, by name."""
     before = dict(build.launches)
-    monkeypatch.setattr(build, "launch", no_launch)
-    for stack, want in ((second, want_second), (first, want_first)):
-        totals, oks = device_stream.roundtrip_scan(*stack, qt, dct)
-        assert (totals.tolist(), oks.tolist()) == want
-    assert graph.replays == 3
-    assert build.launches == before
-    device_stream.clear_scan_graphs()
+    out = fn()
+    return out, {k: n - before[k] for k, n in build.launches.items()
+                 if n != before[k]}
 
 
-def test_scan_graph_reads_each_calls_tables(rng, cuda):
-    """q50 then q90 scans of the same frames back to back on one cached
-    graph: each call's totals are those of roundtrip_frame at its own
-    quality (a graph reading the captured tables would repeat q50's)."""
-    k, h, w = 2, 256, 512
+@pytest.mark.parametrize("qualities", [(75,), (50, 90, 50)])
+def test_scan_equals_eager_frames(rng, cuda, qualities):
+    """roundtrip_scan on the card, one call a quality on the same frames:
+    each call launches K1 and K2 once each (the K frames coded as one) and
+    nothing else of the port's, and its totals and oks equal K
+    roundtrip_frame calls at its own quality."""
+    k, h, w = 3, 256, 512
     stack = _scan_stack(_stream_frames(rng, k, h, w), cuda)
-    device_stream.clear_scan_graphs()
     seen = []
-    for q in (50, 90, 50):
+    for q in qualities:
         dct, qt = pipeline.codec_params([q] * 3, cuda)
-        totals, oks = device_stream.roundtrip_scan(*stack, qt, dct)
-        want = [int(device_stream.roundtrip_frame(
-            stack[0][i], stack[1][i], stack[2][i], qt, dct)[3])
+        (totals, oks), n = _launched(
+            lambda: device_stream.roundtrip_scan(*stack, qt, dct))
+        assert n == {"dct_encode": 1, "decode_idct": 1}
+        outs = [device_stream.roundtrip_frame(
+            stack[0][i], stack[1][i], stack[2][i], qt, dct)
             for i in range(k)]
-        assert totals.tolist() == want and oks.all()
-        seen.append(want)
-    assert seen[0] == seen[2] != seen[1]
-    assert device_stream.scan_graph(k, h, w, stack[0].device).replays == 3
-    device_stream.clear_scan_graphs()
+        assert totals.tolist() == [int(o[3]) for o in outs]
+        assert oks.tolist() == [bool(o[4]) for o in outs] == [True] * k
+        seen.append(totals.tolist())
+    assert len(set(map(tuple, seen))) == len(set(qualities))
 
 
 def test_scan_stream_queues_16_scans_without_a_host_sync(rng, cuda):
@@ -810,7 +794,6 @@ def test_scan_stream_queues_16_scans_without_a_host_sync(rng, cuda):
     sizes, _ = device_stream.compress_frame(
         *device_stream.to_device(frame, cuda), qt, dct)
     assert ok and fps > 0 and total == int(sizes.sum())
-    device_stream.clear_scan_graphs()
 
 
 def test_sweep_rate_routes_agree_on_card(rng, cuda):
@@ -1180,8 +1163,8 @@ def _noise_frame(rng, h, w):
 def test_fast_routes_launch_f1_k5_k6_f2(rng, cuda, monkeypatch):
     """The fast frame and scan routes on the card launch F1 then K5 and K6
     then F2 and nothing else, never the plain versions; their streams
-    decode to F1's coefficients, and a fast scan's graph records K of each
-    of the four."""
+    decode to F1's coefficients, and a fast scan of K frames launches each
+    of the four once."""
     h, w = 256, 512
     dct, qt = pipeline.codec_params([50] * 3, cuda)
     planes = [torch.from_numpy(p).to(cuda) for p in _noise_frame(rng, h, w)]
@@ -1193,27 +1176,20 @@ def test_fast_routes_launch_f1_k5_k6_f2(rng, cuda, monkeypatch):
     monkeypatch.setattr(transform, "fast_dequantize_idct_blocks_plain",
                         refuse)
 
-    def counted(fn):
-        before = dict(build.launches)
-        out = fn()
-        torch.cuda.synchronize()
-        return out, {k: n - before[k] for k, n in build.launches.items()
-                     if n != before[k]}
-
     coeffs = transform.fast_dct_quantize_blocks(*planes, qt, dct)
-    (sizes, content), n = counted(lambda: device_stream.compress_frame(
+    (sizes, content), n = _launched(lambda: device_stream.compress_frame(
         *planes, qt, dct, precision="fast"))
     assert n == {"fast_dct_quantize": 1, "huffman_encode": 1,
                  "compact_chunks": 1}
     offsets = torch.cumsum(sizes, 0, dtype=torch.int64) - sizes
     assert torch.equal(decode.decode_blocks(content, sizes, offsets)[0],
                        coeffs)
-    rec, n = counted(lambda: device_stream.decompress_frame(
-        content, sizes, qt, dct, h, w, fused=True, precision="fast"))
+    rec, n = _launched(lambda: device_stream.decompress_frame(
+        content, sizes, qt, dct, h, w, precision="fast"))
     assert n == {"huffman_decode": 1, "fast_dequantize_idct": 1}
     want = transform.fast_dequantize_idct_blocks(coeffs, qt, dct, h, w)
     assert all(torch.equal(g, p) for g, p in zip(rec, want))
-    out, n = counted(lambda: device_stream.roundtrip_frame(
+    out, n = _launched(lambda: device_stream.roundtrip_frame(
         *planes, qt, dct, precision="fast"))
     assert n == {"fast_dct_quantize": 1, "huffman_encode": 1,
                  "huffman_decode": 1, "fast_dequantize_idct": 1}
@@ -1221,15 +1197,11 @@ def test_fast_routes_launch_f1_k5_k6_f2(rng, cuda, monkeypatch):
     assert int(out[3]) == content.numel() and bool(out[4])
     k = 3
     stack = [p.expand(k, *p.shape).contiguous() for p in planes]
-    device_stream.clear_scan_graphs()
-    totals, oks = device_stream.roundtrip_scan(*stack, qt, dct, "fast")
-    graph = device_stream.scan_graph(k, h, w, stack[0].device, "fast")
-    assert graph.launches == {"fast_dct_quantize": k, "huffman_encode": k,
-                              "huffman_decode": k,
-                              "fast_dequantize_idct": k}
+    (totals, oks), n = _launched(lambda: device_stream.roundtrip_scan(
+        *stack, qt, dct, "fast"))
+    assert n == {"fast_dct_quantize": 1, "huffman_encode": 1,
+                 "huffman_decode": 1, "fast_dequantize_idct": 1}
     assert totals.tolist() == [content.numel()] * k and oks.all()
-    assert device_stream.scan_graph(k, h, w, stack[0].device).graph is None
-    device_stream.clear_scan_graphs()
 
 
 def test_plain_fast_transform_ignores_the_tf32_flag(rng, cuda):

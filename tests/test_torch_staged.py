@@ -1,7 +1,7 @@
 """The port's staged codec route against the JAX package on the CPU: the
 plain versions of K3 (DCT + quantize), K4 (dequantize + IDCT), K5 (Huffman
-encode) and K6 (Huffman decode), and the staged frame route
-(``fused=False``) against the fused route and the JAX package's.
+encode) and K6 (Huffman decode), and the staged frame route composed
+from their wrappers against the frame route and the JAX package's.
 
 The Pallas kernels run in interpret mode at small sizes (<= 256 blocks,
 ``tile=32``). Tolerance: exact equality everywhere."""
@@ -44,6 +44,29 @@ def _planes(rng, h, w):
 def _params(q):
     dct, qt = pipeline.codec_params([q] * 3, "cpu")
     return dct, qt, [scalar.plane_qtable(i, q) for i in range(3)]
+
+
+def _staged_streams(planes, qt, dct):
+    """The staged compress route from the public wrappers: K3, K5, then
+    the compaction and the split into plane streams."""
+    lanes, sizes, err = encode.encode_blocks(transform.dct_quantize_blocks(
+        *device_stream.to_device(planes, qt.device), qt, dct))
+    assert not err.any()
+    return device_stream.split_planes(
+        device_stream.to_host(sizes),
+        device_stream.to_host(device_stream.compact_chunks(lanes, sizes)),
+        *planes[0].shape)
+
+
+def _staged_planes(streams, qt, dct, h, w):
+    """The staged decompress route from the public wrappers: K6, then
+    K4."""
+    content, sizes = device_stream.streams_to_device(streams, qt.device)
+    offsets = torch.cumsum(sizes, 0, dtype=torch.int64) - sizes
+    coeffs, err = decode.decode_blocks(content, sizes, offsets)
+    assert not err.any()
+    return [device_stream.to_host(p) for p in
+            transform.dequantize_idct_blocks(coeffs, qt, dct, h, w)]
 
 
 @pytest.mark.parametrize("q", QUALITIES)
@@ -230,8 +253,7 @@ def test_plain_k6_codes_equal_k2_on_corrupt_chunks(rng, kind):
 def test_staged_compress_equals_fused_and_jax(rng, h, w, q):
     planes = _planes(rng, h, w)
     dct, qt, qts = _params(q)
-    staged = device_stream.compress_frame_to_streams(planes, qt, dct,
-                                                     fused=False)
+    staged = _staged_streams(planes, qt, dct)
     fused = device_stream.compress_frame_to_streams(planes, qt, dct)
     want = jax_ds.compress_frame_to_streams(
         planes, [np.asarray(t) for t in jax_batch.plane_qtables([q] * 3)])
@@ -247,8 +269,7 @@ def test_staged_decompress_equals_fused_and_jax(rng, h, w, q):
     planes = _planes(rng, h, w)
     dct, qt, qts = _params(q)
     streams = device_stream.compress_frame_to_streams(planes, qt, dct)
-    staged = device_stream.decompress_streams_to_frame(streams, qt, dct, h,
-                                                       w, fused=False)
+    staged = _staged_planes(streams, qt, dct, h, w)
     fused = device_stream.decompress_streams_to_frame(streams, qt, dct, h, w)
     want = jax_ds.decompress_streams_to_frame(
         streams, [np.asarray(t) for t in jax_batch.plane_qtables([q] * 3)],

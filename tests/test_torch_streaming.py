@@ -19,6 +19,7 @@ from myyuv_tpu.engine.streaming import FLAG_CHUNK
 from benchmark.reference import capture as capture_reference
 from myyuv_tpu_torch.engine import device_stream, pipeline, streaming
 from myyuv_tpu_torch.kernels import convert, probe
+from myyuv_tpu_torch.kernels.device import plane_block_counts
 from myyuv_tpu_torch.runtime.errors import BitstreamError
 
 H, W = 64, 128
@@ -282,6 +283,36 @@ def test_roundtrip_scan_checks_its_stacks():
     totals, oks = device_stream.roundtrip_scan(ys[:0], us[:0], vs[:0], qt,
                                                dct)
     assert totals.shape == oks.shape == (0,)
+
+
+@pytest.mark.parametrize("plane", [0, 1, 2])
+@pytest.mark.parametrize("side", ["encode", "decode"])
+def test_roundtrip_scan_puts_a_bad_block_on_its_own_frame(rng, monkeypatch,
+                                                          plane, side):
+    """A bad block in one frame's Y, U or V range, from the encoder or the
+    decoder, clears that frame's ok alone; the totals stay the frames'."""
+    k, h, w, bad_frame = 3, 16, 32, 1
+    frames = [[probe.content_kind(rng, "noise", s)
+               for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+              for _ in range(k)]
+    ys, us, vs = _stacked(frames)
+    dct, qt = pipeline.codec_params([50] * 3, "cpu")
+    want, _ = device_stream.roundtrip_scan(ys, us, vs, qt, dct)
+    counts = plane_block_counts(h, w)
+    block = k * sum(counts[:plane]) + bad_frame * counts[plane] + 1
+    name = "frame_lanes" if side == "encode" else "frame_planes"
+    real = getattr(device_stream, name)
+
+    def spoiled(*args, **kwargs):
+        *out, err = real(*args, **kwargs)
+        err = err.clone()
+        err[block] = 1
+        return (*out, err)
+
+    monkeypatch.setattr(device_stream, name, spoiled)
+    totals, oks = device_stream.roundtrip_scan(ys, us, vs, qt, dct)
+    assert totals.tolist() == want.tolist()
+    assert oks.tolist() == [f != bad_frame for f in range(k)]
 
 
 def test_roundtrip_scan_stream_equals_roundtrip_stream(setup):
