@@ -298,7 +298,7 @@ def c1_alone(device_stream, lanes: torch.Tensor, sizes: torch.Tensor):
     """A call of C1's launch alone on ``lanes`` and ``sizes``, its inputs
     (the clamped sizes and their cumulative sum) and its output made once,
     for ``probe.cuda_ms``: ``compact_chunks`` reads the stream's length
-    on the host first, which a queued timer cannot time."""
+    on the host, which a queued timer cannot time."""
     live = sizes.clamp(0, 256).to(torch.int32)
     ends = torch.cumsum(live, 0, dtype=torch.int64)
     out = torch.empty(int(ends[-1]), dtype=torch.uint8, device=lanes.device)
@@ -827,7 +827,8 @@ def main() -> int:
 
     def compacting_roundtrip():  # the round trip as it was: compact first
         y1, u1, v1 = device_stream.as_one_frame(*bt)
-        csizes, ccontent, cerr = device_stream._encode(y1, u1, v1, qt, dct)
+        lanes1, csizes, cerr = device_stream.frame_lanes(y1, u1, v1, qt, dct)
+        ccontent = device_stream.compact_chunks(lanes1, csizes)
         *_, derr = device_stream._decode(ccontent, csizes, qt, dct,
                                          BATCH * H1K, W1K)
         return ~(cerr.any() | derr.any())

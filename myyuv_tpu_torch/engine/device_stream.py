@@ -17,11 +17,14 @@ copies the live bytes of 32 consecutive lanes to their starts, the
 cumulative sum of the sizes, so the chunks come out back to back in block
 order -- the TPU package's continuation-word tiers, its A/C interchange
 regions and the host repack/expand steps have no counterpart. The stream's
-length depends on the data, so ``compact_chunks`` reads the total on the
-host (one sync) and allocates the stream at that size; the entries that
-must not wait (``encode_frame``, ``ingest_frame``, ``roundtrip_frame``,
+length depends on the data, so ``compact_chunks`` queues C1 into a buffer
+of the worst-case size, then reads the total and the encoder's error flag
+to the host in one copy (one sync a compress call) and returns the stream
+as the buffer's first ``total`` bytes; a decompress call reads its
+decoder's error flag (one sync). The entries that must not wait
+(``encode_frame``, ``ingest_frame``, ``roundtrip_frame``,
 ``preview_frame``, the streaming drivers of ``engine/streaming.py``) run
-the same kernel into a buffer of the worst-case size instead
+the same kernel into a zeroed buffer of the worst-case size
 (``scatter_chunks``), or decode straight from the lanes (offsets 256 * b),
 and keep ``total`` and ``ok`` on the device.
 
@@ -69,12 +72,24 @@ Stream = Tuple[np.ndarray, np.ndarray]  # (chunk sizes u8, content u8)
 
 
 def _raise_first_bad(err: torch.Tensor, what: str) -> None:
+    """The error path, taken once a flag read on the host says ``err``
+    holds a nonzero code: search for the first bad block (``wait.err``;
+    counter ``err.search``) and raise BitstreamError naming it."""
+    trace.add("err.search", 1)
     with trace.span("wait.err"):
-        bad = torch.nonzero(err).flatten()
-        if bad.numel():
-            b = int(bad[0])
-            raise BitstreamError(f"{what} failed at block {b} "
-                                 f"(code {int(err[b])})")
+        b = int(torch.nonzero(err)[0, 0])
+        raise BitstreamError(f"{what} failed at block {b} "
+                             f"(code {int(err[b])})")
+
+
+def _check_err(err: torch.Tensor, what: str) -> None:
+    """Raise BitstreamError naming the first bad block of ``err``, if
+    any: one reduction and one read of its flag (``wait.err``), and the
+    search only when the flag is set."""
+    with trace.span("wait.err"):
+        bad = bool(err.any())
+    if bad:
+        _raise_first_bad(err, what)
 
 
 def compact_chunks_plain(lanes: torch.Tensor, sizes: torch.Tensor
@@ -109,28 +124,46 @@ def _launch_compact(lanes: torch.Tensor, live: torch.Tensor,
                  out.data_ptr())
 
 
-def compact_chunks(lanes: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
+def compact_chunks(lanes: torch.Tensor, sizes: torch.Tensor,
+                   err: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[N, 256] lanes -> content u8 [T], the chunks back to back in block
     order on the lanes' device: block b gives its first
     ``clamp(sizes[b], 0, 256)`` bytes (an err block of size >= 256 all of
     its zero lane), byte for byte the mask select
-    ``compact_chunks_plain``.
+    ``compact_chunks_plain``. ``err``, the encoder's codes (i32 [N]), when
+    given: a nonzero code raises BitstreamError naming the first bad block
+    (``_raise_first_bad``).
 
-    On a CUDA device: the sizes clamped, their cumulative sum, one read of
-    its last entry (the total: the one host sync, ``wait.size``), the
-    output allocated at that size and C1 launched into it; the counter
-    ``compact.bytes`` adds the total. On the CPU: the plain version."""
+    On a CUDA device: the sizes clamped, their cumulative sum, an
+    any-error flag after it, C1 launched into an uninitialised buffer of
+    N * 256 bytes, then one read of the total and the flag together (the
+    one host sync, ``wait.size``); ``content`` is a view of the buffer's
+    first T bytes. The counter ``compact.bytes`` adds the total. On the
+    CPU: the plain version and the flag under the one ``wait.size``."""
     n = _check_lanes(lanes, sizes)
     if build.on_cpu(lanes.device, "compact_chunks"):
         with trace.span("wait.size"):
-            return compact_chunks_plain(lanes, sizes)
-    live = sizes.clamp(0, LANE).to(torch.int32)
-    ends = torch.cumsum(live, 0, dtype=torch.int64)
-    with trace.span("wait.size"):
-        total = int(ends[-1]) if n else 0
-    out = torch.empty(total, dtype=torch.uint8, device=lanes.device)
-    _launch_compact(lanes, live, ends, out)
-    trace.add("compact.bytes", total)
+            out = compact_chunks_plain(lanes, sizes)
+            bad = err is not None and bool(err.any())
+    else:
+        live = sizes.clamp(0, LANE).to(torch.int32)
+        # ends, then the flag in the next byte (unset without err): the
+        # total and the flag side by side, read in one copy of 9 bytes
+        ends = torch.empty(n + 1, dtype=torch.int64, device=lanes.device)
+        torch.cumsum(live, 0, dtype=torch.int64, out=ends[:n])
+        raw = ends.view(torch.uint8)
+        if err is not None:
+            torch.any(err, 0, out=raw[8 * n].view(torch.bool))
+        out = torch.empty(n * LANE, dtype=torch.uint8, device=lanes.device)
+        _launch_compact(lanes, live, ends, out)
+        with trace.span("wait.size"):
+            head = bytes(raw[8 * n - 8:8 * n + 1].tolist()) if n else bytes(9)
+        total = int.from_bytes(head[:8], "little")
+        bad = err is not None and head[8] != 0
+        out = out[:total]
+        trace.add("compact.bytes", total)
+    if bad:
+        _raise_first_bad(err, "Huffman encode")
     return out
 
 
@@ -178,12 +211,6 @@ def frame_planes(content, sizes, offsets, qtables, dct, h, w,
                                               precision), err)
 
 
-def _encode(y, u, v, qtables, dct, precision: str = "exact"):
-    """Planes -> (sizes i32 [N], content u8 [T], err i32 [N])."""
-    lanes, sizes, err = frame_lanes(y, u, v, qtables, dct, precision)
-    return sizes, compact_chunks(lanes, sizes), err
-
-
 def _decode(content, sizes, qtables, dct, h, w, precision: str = "exact"):
     """(content, sizes) -> (y, u, v, err i32 [N])."""
     offsets = torch.cumsum(sizes, 0, dtype=torch.int64) - sizes
@@ -197,7 +224,9 @@ def compress_frame(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Device planes -> (sizes i32 [N], content u8 [T]) on the same device:
     the chunks of all blocks back to back, exactly as the file stores
-    them. ``precision="fast"``: F1 then K5."""
+    them (on a CUDA device a view of ``compact_chunks``' buffer). Raises
+    BitstreamError naming the first bad block; one host sync.
+    ``precision="fast"``: F1 then K5."""
     with trace.span("stream.compress_frame"):
         return _compress(y, u, v, qtables, dct, precision)
 
@@ -206,9 +235,8 @@ def _compress(y, u, v, qtables, dct, precision: str):
     """``compress_frame``'s body, also ``compress_batch``'s: a batch entry
     records its frame entry's span around its own work too, and spans of
     one name must not nest."""
-    sizes, content, err = _encode(y, u, v, qtables, dct, precision)
-    _raise_first_bad(err, "Huffman encode")
-    return sizes, content
+    lanes, sizes, err = frame_lanes(y, u, v, qtables, dct, precision)
+    return sizes, compact_chunks(lanes, sizes, err)
 
 
 def split_planes(sizes: np.ndarray, content: np.ndarray, h: int, w: int,
@@ -277,7 +305,7 @@ def decompress_frame(content: torch.Tensor, sizes: torch.Tensor,
 def _decompress(content, sizes, qtables, dct, h, w, precision: str):
     """``decompress_frame``'s body, also ``decompress_batch``'s."""
     y, u, v, err = _decode(content, sizes, qtables, dct, h, w, precision)
-    _raise_first_bad(err, "Huffman decode")
+    _check_err(err, "Huffman decode")
     return y, u, v
 
 
@@ -343,9 +371,9 @@ def compress_batch(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                    precision: str = "exact"
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B, H, W] (+2x [B, H/2, W/2]) uint8 on the device -> (sizes i32
-    [B*Nf], content u8 [T]) on it, blocks plane-major. Raises
-    BitstreamError naming the first bad block. ``precision="fast"``: F1
-    then K5."""
+    [B*Nf], content u8 [T]) on it, blocks plane-major, as
+    ``compress_frame`` returns them. Raises BitstreamError naming the
+    first bad block. ``precision="fast"``: F1 then K5."""
     with trace.span("stream.compress_frame"):
         return _compress(*as_one_frame(y, u, v), qtables, dct, precision)
 

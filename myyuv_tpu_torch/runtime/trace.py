@@ -30,9 +30,11 @@ What the program records:
   frame codec on the device (``device_stream``);
 * ``sweep.quality``: one quality of ``sweep.quality_sweep``;
 * ``wait.h2d`` (a pageable upload), ``wait.d2h`` (a pageable download,
-  ``device_stream.to_host``), ``wait.err`` (the first bad block of an
-  error array), ``wait.size`` (an output whose size depends on the data:
-  the compaction's length, ``torch.unique``), ``wait.scalar`` (a device
+  ``device_stream.to_host``), ``wait.err`` (a decoder's error flag, and
+  the search for the first bad block once a flag is set: in a compress
+  call only on that error path), ``wait.size`` (an output whose size
+  depends on the data: the compaction's length, read with the encoder's
+  error flag in one copy; ``torch.unique``), ``wait.scalar`` (a device
   scalar read on the host), ``wait.event`` (``streaming.compress_stream``
   waiting for its oldest queued frame's event) and ``wait.pull`` (its
   side stream's synchronize on a frame's pinned pull of the stream): each
@@ -43,7 +45,10 @@ What the program records:
   ``pinned_bytes.d2h``: the bytes ``streaming.compress_stream`` pulls into
   pinned host buffers, each frame's head and stream (none on the CPU
   route); ``compact.bytes``: the stream bytes
-  ``device_stream.compact_chunks`` wrote with C1 (none on the CPU route).
+  ``device_stream.compact_chunks`` wrote with C1 (none on the CPU route);
+  ``err.search``: the searches for a first bad block, one a call that
+  raises BitstreamError for an encoder's or decoder's error codes (none
+  on clean input).
 """
 
 from __future__ import annotations

@@ -1360,8 +1360,7 @@ def test_trace_pins_the_file_paths_waits_and_pageable_bytes(rng, cuda):
             if n.startswith("wait."):
                 out[n] = out.get(n, 0) + 1
         return out
-    assert waits(cs) == {"wait.h2d": 5, "wait.size": 1, "wait.err": 1,
-                         "wait.d2h": 2}
+    assert waits(cs) == {"wait.h2d": 5, "wait.size": 1, "wait.d2h": 2}
     assert waits(ds) == {"wait.h2d": 4, "wait.err": 1, "wait.d2h": 3}
     assert cc == {"pageable_bytes.h2d": tables + npix,
                   "pageable_bytes.d2h": nblk * 4 + content,
@@ -1412,6 +1411,102 @@ def test_compact_scatter_on_the_card_equals_the_cpu(rng, cuda, n):
     want, want_total = device_stream.scatter_chunks(lanes.cpu(), sizes.cpu())
     assert torch.equal(content.cpu(), want)
     assert int(total) == int(want_total)
+
+
+def _smooth_batch(rng, b, h, w, cuda):
+    """A batch of b frames [b, h, w] (+2x [b, h/2, w/2]) of gradients with
+    light noise on the card: no chunk past 255 bytes at q50."""
+    base = np.add.outer(np.arange(h) * 3, np.arange(w) * 2) % 200
+    return [torch.from_numpy((base[None, ::s, ::s] + rng.integers(
+        0, 40, (b, h // s, w // s))).astype(np.uint8)).to(cuda)
+        for s in (1, 2, 2)]
+
+
+@pytest.mark.parametrize("entry", ["compress_batch", "compress_frame"])
+@pytest.mark.parametrize("n", [1, 33, 391680])
+def test_compress_entries_equal_the_mask_select(rng, cuda, monkeypatch,
+                                                entry, n):
+    """``compress_batch`` and ``compress_frame`` on the card (C1 into the
+    worst-case buffer, the length and the error flag read in one copy)
+    give K1's sizes and the mask select's bytes of the same lanes: edge
+    sizes at 1 and 33 blocks (the encoder's lanes replaced), K1's own
+    lanes of 8 x 1920x1088 frames (391,680 blocks); the stream's length is
+    the clamped sum of the sizes, one wait a call, no search."""
+    from myyuv_tpu_torch.runtime import trace
+    dct, qt = pipeline.codec_params([50] * 3, cuda)
+    if n == 391680:
+        planes = _smooth_batch(rng, 8, 1088, 1920, cuda)
+    else:
+        planes = _smooth_batch(rng, 1, 16, 16, cuda)
+        lanes, sizes = _edge_lanes(rng, n, cuda)
+        err = torch.zeros(n, dtype=torch.int32, device=cuda)
+        monkeypatch.setattr(device_stream, "frame_lanes",
+                            lambda *a, **k: (lanes, sizes, err))
+    call = {"compress_batch": device_stream.compress_batch,
+            "compress_frame": lambda y, u, v, *a: device_stream.compress_frame(
+                *device_stream.as_one_frame(y, u, v), *a)}[entry]
+    trace.start()
+    got_sizes, content = call(*planes, qt, dct)
+    spans, counters = trace.stop()
+    lanes, sizes, err = device_stream.frame_lanes(
+        *device_stream.as_one_frame(*planes), qt, dct)
+    assert sizes.numel() == n and not err.any()
+    assert torch.equal(got_sizes, sizes)
+    assert content.is_cuda and content.dtype == torch.uint8
+    assert torch.equal(content, device_stream.compact_chunks_plain(lanes,
+                                                                   sizes))
+    assert content.numel() == int(sizes.clamp(0, 256).sum())
+    assert [s[0] for s in spans if s[0].startswith("wait.")] == ["wait.size"]
+    assert "err.search" not in counters
+
+
+@pytest.mark.parametrize("entry", ["compress_batch", "compress_frame",
+                                   "decompress_batch", "decompress_frame"])
+def test_bad_blocks_raise_the_same_messages_on_the_card(rng, cuda,
+                                                        monkeypatch, entry):
+    """A forced encode error (block 5's chunk past its 8-bit size) and a
+    corrupt stream (block 0's tree size past its chunk, the decoder's
+    code 2) raise the messages the entries have always raised, on the
+    card as on the CPU, after one search."""
+    from myyuv_tpu_torch.runtime import trace
+    from myyuv_tpu_torch.runtime.errors import BitstreamError
+    b, h, w = 2, 32, 64
+    planes = _smooth_batch(rng, b, h, w, cuda)
+    dct, qt = pipeline.codec_params([50] * 3, cuda)
+    one = device_stream.as_one_frame(*planes)
+    sizes, content = device_stream.compress_batch(*planes, qt, dct)
+    content = content.clone()
+    content[2] = 255               # block 0's tree size, past its chunk
+    lanes_of = device_stream.frame_lanes
+
+    def too_long(*a, **k):
+        lanes, sizes, err = lanes_of(*a, **k)
+        sizes, err = sizes.clone(), err.clone()
+        sizes[5], err[5] = 300, 1
+        return lanes, sizes, err
+    monkeypatch.setattr(device_stream, "frame_lanes", too_long)
+    calls = {
+        "compress_batch": lambda dev: device_stream.compress_batch(
+            *[p.to(dev) for p in planes], qt.to(dev), dct.to(dev)),
+        "compress_frame": lambda dev: device_stream.compress_frame(
+            *[p.to(dev) for p in one], qt.to(dev), dct.to(dev)),
+        "decompress_batch": lambda dev: device_stream.decompress_batch(
+            content.to(dev), sizes.to(dev), qt.to(dev), dct.to(dev), b, h,
+            w),
+        "decompress_frame": lambda dev: device_stream.decompress_frame(
+            content.to(dev), sizes.to(dev), qt.to(dev), dct.to(dev), b * h,
+            w),
+    }
+    want = ("Huffman encode failed at block 5 (code 1)"
+            if entry.startswith("compress") else
+            "Huffman decode failed at block 0 (code 2)")
+    for dev in (cuda, torch.device("cpu")):
+        trace.start()
+        with pytest.raises(BitstreamError) as raised:
+            calls[entry](dev)
+        _, counters = trace.stop()
+        assert str(raised.value) == want, dev
+        assert counters["err.search"] == 1, dev
 
 
 def test_compact_once_a_batch_and_its_counter(rng, cuda):

@@ -17,6 +17,7 @@ from myyuv_tpu_torch.engine import device_stream, pipeline, streaming, sweep
 from myyuv_tpu_torch.formats import yuv
 from myyuv_tpu_torch.kernels import convert
 from myyuv_tpu_torch.runtime import trace
+from myyuv_tpu_torch.runtime.errors import BitstreamError
 
 CPU = torch.device("cpu")
 
@@ -25,7 +26,7 @@ COMPRESS_TREE = [
     ("pipeline.compress_dct", 0),
     ("pipeline.codec_params", 1), ("wait.h2d", 2), ("wait.h2d", 2),
     ("wait.h2d", 1), ("wait.h2d", 1), ("wait.h2d", 1),
-    ("stream.compress_frame", 1), ("wait.size", 2), ("wait.err", 2),
+    ("stream.compress_frame", 1), ("wait.size", 2),
     ("wait.d2h", 1), ("wait.d2h", 1),
     ("stream.split", 1),
     ("dct_stream.serialize", 1),
@@ -140,12 +141,11 @@ def test_waits_do_not_nest_and_formats_spans_do_not_nest(rng):
 
 
 @pytest.mark.parametrize("path,want", [
-    ("compress_dct", {"wait.h2d": 5, "wait.size": 1, "wait.err": 1,
-                      "wait.d2h": 2}),
+    ("compress_dct", {"wait.h2d": 5, "wait.size": 1, "wait.d2h": 2}),
     ("decompress_dct", {"wait.h2d": 4, "wait.err": 1, "wait.d2h": 3}),
     ("quality_sweep", {"wait.h2d": 3 + 2 * 2, "wait.size": 2,
                        "wait.scalar": 2 * 10}),
-    ("compress_batch", {"wait.size": 1, "wait.err": 1}),
+    ("compress_batch", {"wait.size": 1}),
     ("decompress_batch", {"wait.err": 1}),
     ("roundtrip_batch", {}),
 ])
@@ -175,6 +175,60 @@ def test_wait_spans_per_call_are_pinned(rng, path, want):
     assert _waits(spans) == want
     assert counters.get("pageable_bytes.h2d", 0) == 0
     assert counters.get("pageable_bytes.d2h", 0) == 0
+    assert counters.get("err.search", 0) == 0
+
+
+@pytest.mark.parametrize("entry", ["compress_batch", "compress_frame",
+                                   "decompress_batch", "decompress_frame"])
+def test_a_bad_block_takes_the_search_and_raises_the_same_message(
+        rng, monkeypatch, entry):
+    """A nonzero error code at block 5 (the encoder's: a chunk past its
+    8-bit size) or block 7 (the decoder's code 3): the entry's one wait
+    reads the flag, then the search (``wait.err``, counter ``err.search``
+    at 1) names the block in the message the entries have always
+    raised."""
+    planes, _ = _raw_file(rng)
+    dct, qt = pipeline.codec_params([50] * 3, CPU)
+    batch = [torch.from_numpy(np.stack([p, p])) for p in planes]
+    frame = [torch.from_numpy(p) for p in planes]
+    sizes, content = device_stream.compress_batch(*batch, qt, dct)
+    fsizes, fcontent = device_stream.compress_frame(*frame, qt, dct)
+    lanes_of, planes_of = device_stream.frame_lanes, device_stream.frame_planes
+
+    def too_long(*a, **k):
+        lanes, sizes, err = lanes_of(*a, **k)
+        sizes, err = sizes.clone(), err.clone()
+        sizes[5], err[5] = 300, 1
+        return lanes, sizes, err
+
+    def corrupt(*a, **k):
+        *out, err = planes_of(*a, **k)
+        err = err.clone()
+        err[7] = 3
+        return (*out, err)
+    monkeypatch.setattr(device_stream, "frame_lanes", too_long)
+    monkeypatch.setattr(device_stream, "frame_planes", corrupt)
+    calls = {
+        "compress_batch": lambda: device_stream.compress_batch(*batch, qt,
+                                                               dct),
+        "compress_frame": lambda: device_stream.compress_frame(*frame, qt,
+                                                               dct),
+        "decompress_batch": lambda: device_stream.decompress_batch(
+            content, sizes, qt, dct, 2, 32, 48),
+        "decompress_frame": lambda: device_stream.decompress_frame(
+            fcontent, fsizes, qt, dct, 32, 48),
+    }
+    trace.start()
+    with pytest.raises(BitstreamError) as raised:
+        calls[entry]()
+    spans, counters = trace.stop()
+    if entry.startswith("compress"):
+        assert str(raised.value) == "Huffman encode failed at block 5 (code 1)"
+        assert _waits(spans) == {"wait.size": 1, "wait.err": 1}
+    else:
+        assert str(raised.value) == "Huffman decode failed at block 7 (code 3)"
+        assert _waits(spans) == {"wait.err": 2}
+    assert counters["err.search"] == 1
 
 
 def test_sweep_records_one_span_a_quality(rng):
