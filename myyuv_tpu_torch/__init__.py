@@ -11,7 +11,8 @@ Layout (each module is the counterpart of ``myyuv_tpu``'s of that name):
             the K3/K4 and X1/X2 (colour conversion) wrappers
   entropy/  plain PyTorch Huffman coder; K1/K2, K5/K6 kernel wrappers
   engine/   frame codec on the device, ingest/preview, streaming drivers
-            (compress_stream on CUDA graphs), K-frame scans, the RD
+            (compress_stream and decompress_stream on CUDA graphs),
+            K-frame scans, the RD
             statistics step and quality sweep; codec entry points and
             registry; the frame codec and round trip step sharded over a
             device mesh

@@ -31,6 +31,9 @@ and keep ``total`` and ``ok`` on the device.
 Capture and playback (``ingest_frame``, ``preview_frame``; the JAX
 package's ``word_frame.ingest_frame`` / ``preview_frame``): X1
 (``kernels/convert.py``) then K1, and K2 then X2, two launches each.
+``play_frame`` is the playback step of ``streaming.decompress_stream``: a
+frame staged as its file holds it, one-byte sizes then chunks, in one
+buffer whose length alone sets what the step allocates.
 
 K frames a call (``roundtrip_scan``, the JAX package's ``lax.scan`` of
 ``roundtrip_frame``): the K frames coded as one frame, as a batch is, with
@@ -309,19 +312,42 @@ def _decompress(content, sizes, qtables, dct, h, w, precision: str):
     return y, u, v
 
 
-def streams_to_device(streams: Sequence[Stream], dev: torch.device
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-plane (sizes u8, content u8) -> (content u8 [T], sizes i32 [N])
-    on ``dev``, the planes' chunks back to back. A plane whose content is
-    shorter than its chunk sizes add up to is rejected, as the host decoder
-    rejects it."""
+def plane_chunks(streams: Sequence[Stream]) -> List[np.ndarray]:
+    """Per-plane (sizes u8, content u8) -> each plane's content cut to the
+    bytes its chunk sizes add up to. A plane whose content is shorter is
+    rejected (BitstreamError), as the host decoder rejects it."""
     contents = []
     for s, c in streams:
-        need = int(s.sum(dtype=np.int64))
+        # a u32 sum is exact below 2**24 sizes and ~3x faster than an i64
+        need = int(s.sum(dtype=np.uint32 if s.size <= 1 << 24 else np.int64))
         if need > c.size:
             raise BitstreamError(
                 "content buffer shorter than chunk sizes imply")
         contents.append(c[:need])
+    return contents
+
+
+def check_streams(streams: Sequence[Stream], h: int, w: int
+                  ) -> List[np.ndarray]:
+    """``plane_chunks`` of an h x w frame's streams, after checking that
+    there are three planes of u8 arrays, plane i holding
+    ``plane_block_counts(h, w)[i]`` sizes (ValueError otherwise)."""
+    counts = plane_block_counts(h, w)
+    got = [int(np.size(s)) for s, _ in streams]
+    if got != list(counts):
+        raise ValueError(f"a {h}x{w} frame has {list(counts)} blocks a "
+                         f"plane, the streams {got}")
+    if any(a.dtype != np.uint8 for stream in streams for a in stream):
+        raise ValueError("plane streams must be uint8 sizes and content")
+    return plane_chunks(streams)
+
+
+def streams_to_device(streams: Sequence[Stream], dev: torch.device
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-plane (sizes u8, content u8) -> (content u8 [T], sizes i32 [N])
+    on ``dev``, the planes' chunks back to back (``plane_chunks``'
+    check)."""
+    contents = plane_chunks(streams)
     sizes = _upload(torch.from_numpy(np.concatenate([s for s, _ in streams])),
                    dev).to(torch.int32)
     content = _upload(torch.from_numpy(np.concatenate(contents)), dev)
@@ -503,14 +529,32 @@ def preview_frame(content: torch.Tensor, sizes: torch.Tensor,
     [N]) on the device -> K2 -> X2 -> (BGRX u8 [H, W, 4], ok bool device
     scalar). No host sync; a bad chunk's block decodes to zero pixels and
     ``ok`` is False."""
-    return _preview(content, sizes, qtables, dct, h, w)
+    pixels, err = _preview(content, sizes, qtables, dct, h, w)
+    return pixels, ~err.any()
 
 
 def _preview(content, sizes, qtables, dct, h, w, precision: str = "exact"):
-    """``preview_frame`` at ``precision`` (K6 and F2 when fast, then X2):
-    the step of ``streaming.preview_stream``."""
+    """``preview_frame`` at ``precision`` (K6 and F2 when fast, then X2)
+    -> (BGRX, err i32 [N]): the step of ``streaming.preview_stream`` and
+    of ``play_frame``."""
     *planes, err = _decode(content, sizes, qtables, dct, h, w, precision)
-    return convert.iyuv_to_bgrx(*planes), ~err.any()
+    return convert.iyuv_to_bgrx(*planes), err
+
+
+def play_frame(staged: torch.Tensor, n: int, qtables: torch.Tensor,
+               dct: torch.Tensor, h: int, w: int, precision: str = "exact"
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The playback step of ``streaming.decompress_stream``: one u8 buffer
+    on the device that holds a frame as its file does, its ``n`` one-byte
+    chunk sizes, then its chunks back to back (bytes past them are never
+    read) -> (BGRX u8 [H, W, 4], ok bool device scalar, err i32 [N]): the
+    sizes' cast and offsets, K2 (K6 and F2 when fast), X2. What it
+    allocates depends on the buffer's length and not on the chunks', so
+    one CUDA graph can hold it for every frame staged into the buffer. No
+    host sync; a bad chunk's block decodes to zero pixels."""
+    pixels, err = _preview(staged[n:], staged[:n].to(torch.int32), qtables,
+                           dct, h, w, precision)
+    return pixels, ~err.any(), err
 
 
 def roundtrip_batch(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,

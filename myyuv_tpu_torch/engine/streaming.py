@@ -3,8 +3,9 @@
 Port of ``myyuv_tpu/engine/streaming.py`` (``roundtrip_stream``,
 ``ingest_stream``, ``preview_stream``, ``sustained_roundtrip_fps``,
 ``sustained_scan_fps``, ``sustained_pipeline_fps``, ``compress_stream``,
-``compress_stream_timed``). Each driver queues every frame's kernels back
-to back and waits for the card only where a result must reach the host:
+``compress_stream_timed``), and ``decompress_stream``, which the JAX
+package lacks. Each driver queues every frame's kernels back to back and
+waits for the card only where a result must reach the host:
 
 * ``roundtrip_stream`` (the transcode / RD loop), ``ingest_stream`` (the
   capture pipeline: BGRX -> X1 -> K1) and ``preview_stream`` (the playback
@@ -20,7 +21,13 @@ to back and waits for the card only where a result must reach the host:
   ``depth`` frames queued it waits for the oldest frame's event alone,
   then pulls that frame's ``content[:total]`` on a side stream, so the
   pull does not wait for the frames queued behind it, and assembles the
-  frame pulled before it while this pull runs.
+  frame pulled before it while this pull runs;
+* ``decompress_stream`` (the playback loop: each frame's streams in host
+  memory, as a player reads them, decoded to BGRX pixels on the card)
+  stages each frame into a pinned buffer, uploads it on a side stream and
+  replays one CUDA graph a frame (the sizes' cast and offsets, K2, X2 and
+  a pinned copy of ``ok``) behind the upload's event; with ``depth``
+  frames queued it waits for the oldest frame's event alone.
 
 ``roundtrip_scan_stream`` and ``sustained_scan_fps`` queue K frames a call
 through ``device_stream.roundtrip_scan``: the K frames coded as one
@@ -50,6 +57,7 @@ from typing import (Callable, Iterable, Iterator, List, Sequence, Tuple,
 import numpy as np
 import torch
 
+from ..entropy.device import LANE
 from ..kernels import convert, transform
 from ..runtime import trace
 from ..runtime.errors import BitstreamError
@@ -112,8 +120,9 @@ def preview_stream(stream_dev: Tuple[torch.Tensor, torch.Tensor],
     oks = []
     t0 = time.perf_counter()
     for _ in range(n_frames):
-        _px, ok = ds._preview(content, sizes, qtables, dct, h, w, precision)
-        oks.append(ok)
+        _px, err = ds._preview(content, sizes, qtables, dct, h, w,
+                               precision)
+        oks.append(~err.any())
     (ok_np,) = _drain(oks)
     return ok_np.astype(bool), time.perf_counter() - t0
 
@@ -406,6 +415,141 @@ def compress_stream(frames: Iterable[Frame], qtables: torch.Tensor,
             yield done
     if pulling is not None:
         yield assemble(*pulling)
+
+
+def _stage(parts: Sequence[np.ndarray], out: torch.Tensor) -> torch.Tensor:
+    """Copy the u8 arrays ``parts`` back to back into the front of ``out``
+    (u8, on the host) -> that view. One thread copies: PyTorch's copy
+    splits the arrays over the host's threads, which on an 8-core H100
+    host slowed the uploads beside it and spread the frame rate."""
+    n = sum(p.size for p in parts)
+    np.concatenate(parts, out=out.numpy()[:n])
+    return out[:n]
+
+
+class _PlaySlot:
+    """A frame's place in ``decompress_stream`` on a CUDA device: a pinned
+    host buffer and a device buffer of N * 256 bytes (N one-byte sizes and
+    the longest content N chunks make, 255 bytes each), the events of its
+    upload and of its decode, and one CUDA graph of ``ds.play_frame`` on
+    the device buffer followed by a copy of ``ok`` into a pinned byte,
+    captured at the slot's first frame by ``_capture_graph``. The graph
+    owns the frame's BGRX pixels, ``ok`` and ``err``; a replay overwrites
+    them."""
+
+    def __init__(self, n: int, device: torch.device):
+        self.n = n
+        self.host = torch.empty(n * LANE, dtype=torch.uint8, pin_memory=True)
+        self.buf = torch.empty(n * LANE, dtype=torch.uint8, device=device)
+        self.ok = torch.empty((), dtype=torch.bool, pin_memory=True)
+        self.uploaded, self.done = torch.cuda.Event(), torch.cuda.Event()
+        self.graph = self.out = None
+
+    def decode(self, m: int, side: torch.cuda.Stream, qtables: torch.Tensor,
+               dct: torch.Tensor, h: int, w: int, precision: str):
+        """Upload the staged ``m`` bytes on ``side``, make the current
+        stream wait for the upload and replay the graph -> (BGRX, pinned
+        ok, err, the done event)."""
+        with torch.cuda.stream(side):
+            self.buf[:m].copy_(self.host[:m], non_blocking=True)
+            self.uploaded.record()
+        trace.add("pinned_bytes.h2d", m)
+        torch.cuda.current_stream().wait_event(self.uploaded)
+        if self.graph is None:
+            def body():
+                out = ds.play_frame(self.buf, self.n, qtables, dct, h, w,
+                                    precision)
+                self.ok.copy_(out[1], non_blocking=True)
+                return out
+            self.graph, self.out = _capture_graph(body, self.buf.device)
+        self.graph.replay()
+        self.done.record()
+        pixels, _, err = self.out
+        return pixels, self.ok, err, self.done
+
+
+def decompress_stream(frames: Iterable[Sequence[ds.Stream]],
+                      qtables: torch.Tensor, dct: torch.Tensor, h: int,
+                      w: int, depth: int = 3, precision: str = "exact"
+                      ) -> Iterator[torch.Tensor]:
+    """Streamed decode of frames whose streams lie in host memory, each
+    frame's [(sizes u8, content u8)] x 3 plane streams as
+    ``compress_stream`` yields them and a ``.myyuv`` file holds them
+    (numpy arrays, pageable or not) -> each frame's BGRX [H, W, 4] uint8
+    on ``qtables.device``, in order: the bytes of
+    ``ds.decompress_streams_to_frame`` followed by X2.
+
+    Per frame: the host checks the streams (``ds.check_streams``: three
+    planes of this geometry's block counts, content as long as the sizes
+    imply) and copies the sizes, then the chunks, into one buffer (span
+    ``stream.stage``); then ``ds.play_frame`` on it (span
+    ``stream.decode_frame``). On a CUDA device the buffer is the pinned
+    one of frame k's slot, k mod (depth + 2) (``_PlaySlot``); one
+    non-blocking copy of its N + T bytes (counter ``pinned_bytes.h2d``)
+    runs on a side stream, and the current stream waits for it and
+    replays the slot's graph, so the upload of one frame overlaps the
+    decode of the one before and the host stages the next meanwhile. The
+    first frame of a slot captures its graph, which waits for the card
+    once.
+
+    ``depth`` frames stay queued behind the one yielded: once a frame is
+    queued past them, the oldest queued frame's decode is waited for (span
+    ``wait.event``) and its frame yielded. A yielded frame on a CUDA
+    device is a view of its slot's pixels: frame k + depth + 2 overwrites
+    it, and the stream queues that frame while it yields frame k + 2, so
+    ``clone()`` a frame kept past the next one. A slot's pinned buffer is
+    refilled only after its last frame was yielded.
+
+    A frame whose chunk does not decode raises BitstreamError when it is
+    due, with ``ds.decompress_frame``'s message; a frame whose streams
+    fail the checks raises when it is staged, ``depth`` frames earlier.
+    Leaving the stream (closing it, or an error) waits for the frames
+    still queued. On the CPU the steps run eagerly on the plain versions,
+    the wait span holds no wait and nothing is pinned.
+    ``precision="fast"``: K6 then F2, then X2."""
+    if depth < 0:
+        raise ValueError(f"depth must be >= 0, got {depth}")
+    n = transform.frame_blocks(h, w)
+    device = qtables.device
+    cuda = device.type == "cuda"
+    side = torch.cuda.Stream(device) if cuda else None
+    queued, ring = deque(), []
+
+    def due():
+        pixels, ok, err, event = queued.popleft()
+        with trace.span("wait.event"):
+            if event is not None:
+                event.synchronize()
+        if not bool(ok):
+            ds._raise_first_bad(err, "Huffman decode")
+        return pixels
+
+    try:
+        for k, frame in enumerate(frames):
+            if cuda and len(ring) < depth + 2:
+                ring.append(_PlaySlot(n, device))
+            slot = ring[k % len(ring)] if cuda else None
+            with trace.span("stream.stage"):
+                parts = [s for s, _ in frame] + ds.check_streams(frame, h, w)
+                staged = _stage(parts, slot.host if cuda else torch.empty(
+                    sum(p.size for p in parts), dtype=torch.uint8))
+            with trace.span("stream.decode_frame"):
+                if cuda:
+                    with torch.cuda.device(device):
+                        queued.append(slot.decode(staged.numel(), side,
+                                                  qtables, dct, h, w,
+                                                  precision))
+                else:
+                    queued.append((*ds.play_frame(staged, n, qtables, dct,
+                                                  h, w, precision), None))
+            if len(queued) > depth:
+                yield due()
+        while queued:
+            yield due()
+    finally:
+        for *_, event in queued:
+            if event is not None:
+                event.synchronize()
 
 
 def compress_stream_timed(planes_np: Sequence[np.ndarray],

@@ -27,7 +27,10 @@ What the program records:
   ``stream.ingest_frame`` (X1 and the sync-free encode of BGRX pixels:
   ``ingest_frame``, ``streaming.ingest_stream`` and
   ``streaming.compress_stream`` on BGRX frames) and ``stream.split``: the
-  frame codec on the device (``device_stream``);
+  frame codec on the device (``device_stream``); ``stream.stage`` (the
+  host's checks of a frame's streams and their copy into one buffer,
+  pinned on a CUDA device) and ``stream.decode_frame`` (the upload's
+  enqueue and the decode's graph replay): ``streaming.decompress_stream``;
 * ``sweep.quality``: one quality of ``sweep.quality_sweep``;
 * ``wait.h2d`` (a pageable upload), ``wait.d2h`` (a pageable download,
   ``device_stream.to_host``), ``wait.err`` (a decoder's error flag, and
@@ -36,7 +39,8 @@ What the program records:
   depends on the data: the compaction's length, read with the encoder's
   error flag in one copy; ``torch.unique``), ``wait.scalar`` (a device
   scalar read on the host), ``wait.event`` (``streaming.compress_stream``
-  waiting for its oldest queued frame's event) and ``wait.pull`` (its
+  and ``streaming.decompress_stream`` waiting for their oldest queued
+  frame's event) and ``wait.pull`` (``compress_stream``'s
   side stream's synchronize on a frame's pinned pull of the stream): each
   place where the host blocks on the card, one span a wait; they do not
   nest in one another;
@@ -44,7 +48,10 @@ What the program records:
   each pageable copy to or from a CUDA device (none on the CPU route);
   ``pinned_bytes.d2h``: the bytes ``streaming.compress_stream`` pulls into
   pinned host buffers, each frame's head and stream (none on the CPU
-  route); ``compact.bytes``: the stream bytes
+  route); ``pinned_bytes.h2d``: the bytes
+  ``streaming.decompress_stream`` uploads from pinned host buffers, each
+  frame's one-byte sizes and chunks (none on the CPU route);
+  ``compact.bytes``: the stream bytes
   ``device_stream.compact_chunks`` wrote with C1 (none on the CPU route);
   ``err.search``: the searches for a first bad block, one a call that
   raises BitstreamError for an encoder's or decoder's error codes (none

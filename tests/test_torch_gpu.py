@@ -30,6 +30,7 @@ from myyuv_tpu_torch.entropy import decode, encode
 from myyuv_tpu_torch.entropy import device as edev
 from myyuv_tpu_torch.kernels import build, convert, probe, transform
 from myyuv_tpu_torch.kernels import device as kdev
+from myyuv_tpu_torch.runtime.errors import BitstreamError
 
 import front_cases
 
@@ -724,6 +725,126 @@ def test_compress_stream_slots_by_geometry_and_replays(rng, cuda):
             assert np.array_equal(gs, ss) and np.array_equal(gc, sc)
     assert launched == {"dct_encode": 16, "compact_chunks": 16,
                         "bgrx_to_iyuv": 6}
+
+
+def _played(rng, n, h, w):
+    """n BGRX frames' streams in host memory (random pixels, coded on the
+    CPU), as a player's read-ahead holds them."""
+    dct, qt = pipeline.codec_params([50] * 3, "cpu")
+    px = [torch.from_numpy(f) for f in
+          rng.integers(0, 256, (n, h, w, 4)).astype(np.uint8)]
+    return list(streaming.compress_stream(px, qt, dct))
+
+
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+@pytest.mark.parametrize("depth", [1, 3])
+def test_decompress_stream_graphs_equal_the_cpu_route(rng, cuda, depth,
+                                                      precision):
+    """decompress_stream on the card (pinned staging, side-stream uploads,
+    one CUDA graph a slot) over 9 frames: every frame's BGRX that of the
+    CPU route, byte for byte; the replays launch nothing from Python (K2,
+    or K6 and F2, and X2 twice a slot: eagerly and in the capture)."""
+    h, w = 256, 512
+    streams = _played(rng, 9, h, w)
+    dct_c, qt_c = pipeline.codec_params([50] * 3, "cpu")
+    want = list(streaming.decompress_stream(streams, qt_c, dct_c, h, w,
+                                            precision=precision))
+    dct, qt = pipeline.codec_params([50] * 3, cuda)
+    torch.cuda.synchronize()
+    before = dict(build.launches)
+    got = [f.cpu() for f in streaming.decompress_stream(
+        streams, qt, dct, h, w, depth=depth, precision=precision)]
+    launched = {k: build.launches[k] - n for k, n in before.items()
+                if build.launches[k] > n}
+    assert len(got) == len(want) == 9
+    for g, wnt in zip(got, want):
+        assert torch.equal(g, wnt)
+    slots = 2 * (depth + 2)
+    assert launched == ({"decode_idct": slots, "iyuv_to_bgrx": slots}
+                        if precision == "exact" else
+                        {"huffman_decode": slots,
+                         "fast_dequantize_idct": slots,
+                         "iyuv_to_bgrx": slots})
+
+
+def test_decompress_stream_keeps_a_frame_until_its_slot_comes_round(rng,
+                                                                    cuda):
+    """A yielded frame is a view of its slot: it holds its pixels while
+    frames up to k + depth + 1 are queued (while frame k + 1 is yielded),
+    and frame k + depth + 2, queued while frame k + 2 is yielded, takes
+    the slot over."""
+    h, w, depth = 64, 128, 2
+    streams = _played(rng, 8, h, w)
+    dct, qt = pipeline.codec_params([50] * 3, cuda)
+    want = [f.clone() for f in streaming.decompress_stream(
+        streams, qt, dct, h, w, depth=depth)]
+    taken = []
+
+    def frames():
+        for k, st in enumerate(streams):
+            taken.append(k)
+            yield st
+    stream = streaming.decompress_stream(frames(), qt, dct, h, w,
+                                         depth=depth)
+    first = next(stream)
+    assert torch.equal(first, want[0]) and len(taken) == depth + 1
+    next(stream)
+    torch.cuda.synchronize()
+    assert torch.equal(first, want[0]) and len(taken) == depth + 2
+    next(stream)
+    torch.cuda.synchronize()
+    assert len(taken) == depth + 3
+    assert torch.equal(first, want[depth + 2])
+    assert not torch.equal(want[0], want[depth + 2])
+    stream.close()
+
+
+def test_decompress_stream_counts_its_pinned_uploads(rng, cuda):
+    """``pinned_bytes.h2d``: each frame's N one-byte sizes and T chunk
+    bytes, once; nothing pageable."""
+    from myyuv_tpu_torch.runtime import trace
+    h, w = 128, 256
+    streams = _played(rng, 6, h, w)
+    dct, qt = pipeline.codec_params([50] * 3, cuda)
+    trace.start()
+    got = list(streaming.decompress_stream(streams, qt, dct, h, w))
+    _, counters = trace.stop()
+    nblk = h * w * 3 // 2 // 64
+    content = sum(int(c.size) for st in streams for _, c in st)
+    assert len(got) == 6
+    assert counters == {"pinned_bytes.h2d": 6 * nblk + content}
+
+
+def test_decompress_stream_raises_at_a_bad_frame_and_the_card_goes_on(rng,
+                                                                       cuda):
+    """A flipped tree-size byte in frame 3 of 7: frames 0-2 come out equal
+    to the CPU route's, then BitstreamError with decompress_frame's
+    message; the stream is closed, and a new stream on the card decodes
+    the good frames."""
+    h, w = 128, 256
+    streams = _played(rng, 7, h, w)
+    dct_c, qt_c = pipeline.codec_params([50] * 3, "cpu")
+    good = list(streaming.decompress_stream(streams, qt_c, dct_c, h, w))
+    sizes, content = streams[3][0]
+    content = content.copy()
+    content[2] ^= 0x5A                      # block 0's tree size
+    bad = streams[:3] + [[(sizes, content), *streams[3][1:]]] + streams[4:]
+    dct, qt = pipeline.codec_params([50] * 3, cuda)
+    with pytest.raises(BitstreamError) as want:
+        device_stream.decompress_streams_to_frame(bad[3], qt, dct, h, w)
+    stream = streaming.decompress_stream(bad, qt, dct, h, w, depth=3)
+    for k in range(3):
+        assert torch.equal(next(stream).cpu(), good[k])
+    with pytest.raises(BitstreamError) as got:
+        next(stream)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(StopIteration):
+        next(stream)
+    again = [f.cpu() for f in streaming.decompress_stream(streams, qt, dct,
+                                                          h, w)]
+    assert len(again) == len(good)
+    for g, wnt in zip(again, good):
+        assert torch.equal(g, wnt)
 
 
 def test_streaming_roundtrip_queues_16_frames_without_a_host_sync(rng,

@@ -2,10 +2,13 @@
 they run the plain versions: flags and totals against the frame API, and
 ``compress_stream``'s bytes against the frame API and the JAX package, and
 on BGRX frames against X1 and the frame API and the benchmark's plain
-reference of the capture path; ``device_stream.roundtrip_scan`` against
-the JAX package's and the frame API.
+reference of the capture path; ``decompress_stream``'s pixels against the
+frame API with X2, the benchmark's plain reference of the playback path and
+the JAX package's decode with its X2; ``device_stream.roundtrip_scan``
+against the JAX package's and the frame API.
 
-Tolerance: exact equality (flags, byte counts, stream bytes)."""
+Tolerance: exact equality (flags, byte counts, stream bytes, pixels),
+except the fast decode against the exact one, within +-1 a byte."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +19,9 @@ from myyuv_tpu import native
 from myyuv_tpu.engine import batch as jax_batch
 from myyuv_tpu.engine import device_stream as jax_ds
 from myyuv_tpu.engine.streaming import FLAG_CHUNK
+from myyuv_tpu.kernels import device as jax_device
 from benchmark.reference import capture as capture_reference
+from benchmark.reference import playback as playback_reference
 from myyuv_tpu_torch.engine import device_stream, pipeline, streaming
 from myyuv_tpu_torch.kernels import convert, probe
 from myyuv_tpu_torch.kernels.device import plane_block_counts
@@ -157,6 +162,117 @@ def test_compress_stream_refuses_a_bgrx_batch(rng):
     batch = torch.stack(_bgrx_frames(rng, "random", 32, 48, n=2))
     with pytest.raises(ValueError, match=r"\[H, W, 4\]"):
         list(streaming.compress_stream([batch], qt, dct))
+
+
+def _played(rng, h, w, n=4, q=50):
+    """n random BGRX frames and their streams, as the plain reference of
+    the capture path codes them (a file's bytes)."""
+    frames = _bgrx_frames(rng, "random", h, w, n)
+    return frames, [capture_reference.frame_streams(px, [q] * 3)
+                    for px in frames]
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+@pytest.mark.parametrize("h, w", [(32, 48), (64, 64)])
+def test_decompress_stream_matches_frame_api_reference_and_jax(rng, h, w,
+                                                               depth):
+    """Streams in host memory through ``decompress_stream``: in order and
+    byte for byte the BGRX of ``decompress_streams_to_frame`` followed by
+    X2, of the benchmark's plain reference of the playback path on the
+    source pixels, and of the JAX package's decode followed by its X2."""
+    if not native.available():
+        pytest.skip("native entropy library unavailable")
+    dct, qt = pipeline.codec_params([50] * 3, "cpu")
+    tables = [np.asarray(t) for t in jax_batch.plane_qtables([50] * 3)]
+    frames, streams = _played(rng, h, w)
+    got = list(streaming.decompress_stream(streams, qt, dct, h, w,
+                                           depth=depth))
+    assert len(got) == len(frames)
+    for g, px, st in zip(got, frames, streams):
+        assert g.dtype == torch.uint8 and g.shape == (h, w, 4)
+        planes = device_stream.decompress_streams_to_frame(st, qt, dct, h, w)
+        jax_planes = jax_ds.decompress_streams_to_frame(st, tables, h, w)
+        for want in (convert.iyuv_to_bgrx(*map(torch.from_numpy, planes)),
+                     playback_reference.frame_bgrx(px, [50] * 3),
+                     torch.from_numpy(np.array(jax_device.iyuv_to_bgrx(
+                         *(jnp.asarray(p) for p in jax_planes))))):
+            assert torch.equal(g, want)
+
+
+@pytest.mark.parametrize("depth", [0, 3])
+def test_decompress_stream_raises_a_bad_tree_at_its_frame(rng, depth):
+    """A flipped tree-size byte in frame 2: frames 0 and 1 come out, then
+    BitstreamError with ``decompress_frame``'s message."""
+    dct, qt = pipeline.codec_params([50] * 3, "cpu")
+    _, streams = _played(rng, 32, 48)
+    sizes, content = streams[2][0]
+    content = content.copy()
+    content[2] ^= 0x5A                      # block 0's tree size
+    streams[2] = [(sizes, content), *streams[2][1:]]
+    with pytest.raises(BitstreamError) as want:
+        device_stream.decompress_streams_to_frame(streams[2], qt, dct, 32, 48)
+    stream = streaming.decompress_stream(streams, qt, dct, 32, 48,
+                                         depth=depth)
+    assert next(stream).shape == next(stream).shape == (32, 48, 4)
+    with pytest.raises(BitstreamError) as got:
+        next(stream)
+    assert str(got.value) == str(want.value)
+    assert str(got.value).startswith("Huffman decode failed at block 0")
+
+
+FAULTS = {"short": (BitstreamError, "shorter than chunk sizes"),
+          "blocks": (ValueError, "blocks a plane"),
+          "dtype": (ValueError, "uint8")}
+
+
+@pytest.mark.parametrize("fault", list(FAULTS))
+def test_decompress_stream_checks_a_frame_when_it_stages_it(rng, fault):
+    """Frame 2's Y content one byte shorter than its sizes imply raises
+    BitstreamError (a block count not the geometry's, or sizes not uint8,
+    ValueError) when the frame is staged: at depth 3 before frame 0 comes
+    out, at depth 0 after frames 0 and 1."""
+    dct, qt = pipeline.codec_params([50] * 3, "cpu")
+    _, streams = _played(rng, 32, 48)
+    sizes, content = streams[2][0]
+    streams[2] = [{"short": (sizes, content[:-1]),
+                   "blocks": (sizes[:-1], content),
+                   "dtype": (sizes.astype(np.int32), content)}[fault],
+                  *streams[2][1:]]
+    error, match = FAULTS[fault]
+    with pytest.raises(error, match=match):
+        next(streaming.decompress_stream(streams, qt, dct, 32, 48, depth=3))
+    stream = streaming.decompress_stream(streams, qt, dct, 32, 48, depth=0)
+    next(stream), next(stream)
+    with pytest.raises(error, match=match):
+        next(stream)
+
+
+def test_decompress_stream_fast_is_within_one_of_exact(rng):
+    """``precision="fast"`` (K6 and F2, then X2): every byte within +-1 of
+    the exact decode's, alpha 255."""
+    dct, qt = pipeline.codec_params([50] * 3, "cpu")
+    _, streams = _played(rng, 64, 64)
+    exact = list(streaming.decompress_stream(streams, qt, dct, 64, 64))
+    fast = list(streaming.decompress_stream(streams, qt, dct, 64, 64,
+                                            precision="fast"))
+    assert len(fast) == len(exact) == len(streams)
+    for f, e in zip(fast, exact):
+        assert (f.to(torch.int16) - e.to(torch.int16)).abs().max() <= 1
+        assert (f[..., 3] == 255).all()
+
+
+def test_capture_into_playback_is_the_references_reconstruction(rng):
+    """``compress_stream`` of BGRX frames fed straight into
+    ``decompress_stream``: the reference's reconstruction of each source
+    frame, shown as BGRX."""
+    dct, qt = pipeline.codec_params([50] * 3, "cpu")
+    frames = _bgrx_frames(rng, "extreme", 48, 64, n=5)
+    got = list(streaming.decompress_stream(
+        streaming.compress_stream(frames, qt, dct, depth=2), qt, dct, 48, 64,
+        depth=2))
+    assert len(got) == len(frames)
+    for g, px in zip(got, frames):
+        assert torch.equal(g, playback_reference.frame_bgrx(px, [50] * 3))
 
 
 def test_sustained_drivers_report_every_window(setup):

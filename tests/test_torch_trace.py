@@ -305,3 +305,34 @@ def test_ingest_entries_record_the_ingest_span(rng, entry):
     spans, counters = trace.stop()
     assert [s[:2] for s in spans] == [("stream.ingest_frame", 0)] * n
     assert counters == {}
+
+
+@pytest.mark.parametrize(
+    "device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_decompress_stream_records_stage_decode_and_its_wait(rng, device):
+    """A frame of ``decompress_stream``: ``stream.stage``, then
+    ``stream.decode_frame``, then at its turn ``wait.event``, each at depth
+    0 below a caller that opened no span; on the CPU nothing is counted, on
+    a CUDA device ``pinned_bytes.h2d`` counts each frame's N one-byte sizes
+    and T chunk bytes."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    h, w = 32, 48
+    dct, qt = pipeline.codec_params([50] * 3, CPU)
+    streams = list(streaming.compress_stream(_bgrx(rng, n=3, h=h, w=w), qt,
+                                             dct))
+    dct, qt = pipeline.codec_params([50] * 3, device)
+    trace.start()
+    got = list(streaming.decompress_stream(streams, qt, dct, h, w, depth=1))
+    spans, counters = trace.stop()
+    assert len(got) == 3
+    assert collections.Counter(s[:2] for s in spans) == {
+        ("stream.stage", 0): 3, ("stream.decode_frame", 0): 3,
+        ("wait.event", 0): 3}
+    order = [n for n, _, _, _ in sorted(spans, key=lambda s: s[2])]
+    assert order == ["stream.stage", "stream.decode_frame"] * 2 + [
+        "wait.event", "stream.stage", "stream.decode_frame"] + [
+        "wait.event"] * 2
+    nbytes = sum(s.size + c.size for st in streams for s, c in st)
+    assert counters == ({} if device == "cpu"
+                        else {"pinned_bytes.h2d": nbytes})
